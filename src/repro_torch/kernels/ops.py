@@ -1,0 +1,43 @@
+"""Layout adapters between the model's caches and the kernels.
+
+`decode_attention` matches `attention.decode_attn_ref`'s signature so that
+`model.decode_step` can swap the paged decode kernel in. Unlike the
+reference adapter (`repro/kernels/ops.py`), it never falls back to the
+dense oracle: a cache whose length 64 does not divide is read as one page
+per slot, and what the kernel cannot compute (windowed or int8 caches)
+raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import decode_attention as _da
+
+
+def decode_attention(q, kc, vc, kv_pos, positions, window: int = 0,
+                     scale=None, page_tokens: int = 64, scales=None):
+    """Dense-cache adapter: treats each slot's contiguous cache as pages.
+
+    q: (B, H, hd); kc/vc: (B, S, KV, hd); kv_pos: (B, S); positions: (B,).
+    Slot b holds positions 0..positions[b] at indices 0..positions[b] (the
+    engine's prefill + decode writes), so its length is positions[b] + 1
+    and kv_pos is not read. q is read in the cache's dtype and the output
+    is in the cache's dtype, as `decode_attn_ref`'s is."""
+    if window > 0:
+        raise NotImplementedError(
+            "windowed (SWA) caches are not ported yet (ROADMAP item 9.1)")
+    if scales is not None and scales[0] is not None:
+        raise NotImplementedError(
+            "int8 KV caches (kv_quant) are not ported yet (ROADMAP item 3)")
+    B, S, KV, hd = kc.shape
+    ptok = page_tokens if S % page_tokens == 0 else S
+    n_pages = S // ptok
+    k_pages = kc.reshape(B * n_pages, ptok, KV, hd)
+    v_pages = vc.reshape(B * n_pages, ptok, KV, hd)
+    page_table = torch.arange(B * n_pages, dtype=torch.int32,
+                              device=kc.device).reshape(B, n_pages)
+    lengths = (positions + 1).to(torch.int32)
+    return _da.paged_decode_attention(q.to(kc.dtype).contiguous(), k_pages,
+                                      v_pages, page_table, lengths,
+                                      scale=scale)

@@ -1,0 +1,148 @@
+"""Attention layers: the dense GQA/MHA half (+ qk_norm) of the reference.
+
+Port of `repro/models/attention.py` for full (unwindowed, unquantized)
+caches. Two execution paths per layer:
+  * prefill: chunked flash attention over the whole sequence
+  * decode: one-token attention against a KV cache (`decode_attn_ref`
+    here; the CUDA kernel is swapped in by `kernels/ops.decode_attention`)
+
+Cache layout per layer (per-request absolute positions, so continuous
+batching works): k/v (B, S_max, KV, hd), kv_pos (B, S_max) int32 (-1 =
+empty). Unlike the reference, cache writes update the given tensors in
+place and return the same dict: a decode round then moves no cache copy.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+
+def make_cache(cfg: ModelConfig, batch: int, s_max: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+    """Empty per-layer cache (without the leading layer axis)."""
+    shape = (batch, s_max, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "kv_pos": torch.full((batch, s_max), -1, dtype=torch.int32,
+                             device=device),
+    }
+
+
+# ------------------------------------------------------------- GQA paths ---
+def _project_qkv(p: Params, x, cfg: ModelConfig, lora, lora_scale):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def proj(w, name, n_out):
+        y = x @ w.to(x.dtype)
+        if lora is not None and name in lora:
+            a, b = lora[name]
+            y = y + lora_scale * ((x @ a.to(x.dtype)) @ b.to(x.dtype))
+        return y.reshape(B, S, n_out, hd)
+
+    q = proj(p["wq"], "q", H)
+    k = proj(p["wk"], "k", KV)
+    v = proj(p["wv"], "v", KV)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _out_proj(p: Params, o, cfg: ModelConfig, lora, lora_scale):
+    B, S = o.shape[:2]
+    o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    y = o @ p["wo"].to(o.dtype)
+    if lora is not None and "o" in lora:
+        a, b = lora["o"]
+        y = y + lora_scale * ((o @ a.to(o.dtype)) @ b.to(o.dtype))
+    return y
+
+
+def attn_prefill(p: Params, x, positions, cfg: ModelConfig, *,
+                 cache: Optional[Dict] = None, lora=None,
+                 lora_scale: float = 0.0):
+    """Full-sequence attention. positions: (B, S) absolute. Returns (out,
+    cache); the cache, when given, is written in place."""
+    q, k, v = _project_qkv(p, x, cfg, lora, lora_scale)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    o = L.flash_attention(q, k, v, causal=True, q_offset=positions[:, 0])
+    out = _out_proj(p, o, cfg, lora, lora_scale)
+    if cache is not None:
+        cache = _cache_write_prefill(cache, k, v, positions)
+    return out, cache
+
+
+def _cache_write_bulk(cache, k, v, positions):
+    """Scatter a token chunk (B, s, KV, hd) at `positions` (B, s), in place."""
+    bidx = torch.arange(k.shape[0], device=k.device)[:, None]
+    pos = positions.long()
+    cache["k"][bidx, pos] = k.to(cache["k"].dtype)
+    cache["v"][bidx, pos] = v.to(cache["v"].dtype)
+    cache["kv_pos"][bidx, pos] = positions.to(torch.int32)
+    return cache
+
+
+def _cache_write_prefill(cache, k, v, positions):
+    """Contiguous prefill write from slot 0 (prompt positions are
+    arange-contiguous per request), in place."""
+    S_max = cache["k"].shape[1]
+    S = min(k.shape[1], S_max)
+    cache["k"][:, :S] = k[:, :S].to(cache["k"].dtype)
+    cache["v"][:, :S] = v[:, :S].to(cache["v"].dtype)
+    cache["kv_pos"][:, :S] = positions[:, :S].to(torch.int32)
+    return cache
+
+
+def attn_decode(p: Params, x, positions, cache: Dict, cfg: ModelConfig, *,
+                lora=None, lora_scale: float = 0.0,
+                decode_attn_fn: Optional[Callable] = None):
+    """One-token decode. x: (B, 1, d); positions: (B,). Returns (out,
+    cache); the new token's K/V are written into the cache in place."""
+    q, k, v = _project_qkv(p, x, cfg, lora, lora_scale)
+    q = L.apply_rope(q, positions[:, None], cfg.rope_theta)
+    k = L.apply_rope(k, positions[:, None], cfg.rope_theta)
+    cache = _cache_write_bulk(cache, k, v, positions[:, None])
+    fn = decode_attn_ref if decode_attn_fn is None else decode_attn_fn
+    o = fn(q[:, 0], cache["k"], cache["v"], cache["kv_pos"], positions)
+    out = _out_proj(p, o[:, None], cfg, lora, lora_scale)
+    return out, cache
+
+
+def decode_attn_ref(q, kc, vc, kv_pos, positions, window: int = 0,
+                    scale: Optional[float] = None, scales=None):
+    """Dense decode attention oracle. q: (B, H, hd); cache (B, S, KV, hd).
+
+    Keeps the reference's bf16 behaviour: the softmax weights are cast to
+    the cache dtype before the PV product (f32 accumulation), and the
+    output is in the cache dtype."""
+    if scales is not None and scales[0] is not None:
+        raise NotImplementedError(
+            "int8 KV caches (kv_quant) are not ported yet (ROADMAP item 3)")
+    B, H, hd = q.shape
+    KV = kc.shape[2]
+    g = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    qr = q.reshape(B, KV, g, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qr, kc.float()) * scale
+    valid = (kv_pos >= 0) & (kv_pos <= positions[:, None])
+    if window > 0:
+        valid = valid & (kv_pos > positions[:, None] - window)
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, -torch.inf)
+    pmax = s.amax(dim=-1, keepdim=True)
+    pmax = torch.where(torch.isneginf(pmax), 0.0, pmax)
+    e = torch.exp(s - pmax)
+    e = torch.where(valid, e, 0.0)
+    o = torch.einsum("bkgs,bskh->bkgh", e.to(vc.dtype).float(), vc.float())
+    o = o / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    return o.reshape(B, H, hd).to(vc.dtype)

@@ -1,0 +1,186 @@
+"""Model assembly: the dense decoder's serving path.
+
+Port of the dense half of `repro/models/model.py`. Params are a dict of
+tensors under the JAX pytree's names:
+  {"embed": (V, d), "final_norm": (d,), ["unembed": (V, d)],
+   "pre": [], "post": [],
+   "scan": {"ln1", "attn": {"wq", "wk", "wv", "wo", ["q_norm", "k_norm"]},
+            "ln2", "mlp": {"gate", "up", "down"}}}   # leading axis = layer
+and caches mirror it: {"pre": [], "scan": {"k", "v", "kv_pos"}, "post": []}
+with k/v (n_layers, B, S_max, KV, hd).
+
+The reference's `jax.lax.scan` over the stacked params becomes a Python loop
+that indexes layer `i` and writes that layer's cache in place: the caller's
+cache tensors are updated, and the returned cache is the same dict.
+Families the port does not run yet raise `NotImplementedError` naming the
+ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+
+# (predicate, what, ROADMAP item) for configurations not ported yet
+_UNPORTED = (
+    (lambda c: c.mla, "MLA attention", "9.3"),
+    (lambda c: c.moe, "MoE layers", "9.2"),
+    (lambda c: c.family == "ssm", "the SSM family", "9.4"),
+    (lambda c: c.family == "hybrid", "the hybrid RG-LRU family", "9.5"),
+    (lambda c: c.enc_layers or c.cross_attention or
+     c.family in ("encdec", "audio"), "the encoder-decoder family", "9.6"),
+    (lambda c: c.frontend != "none" or c.family == "vlm",
+     "the vision-stub frontend", "9.7"),
+    (lambda c: c.attn_type == "swa", "sliding-window attention", "9.1"),
+    (lambda c: c.kv_quant, "int8 KV caches (kv_quant)", "3"),
+)
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    for pred, what, item in _UNPORTED:
+        if pred(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: {what} is not ported to PyTorch yet "
+                f"(ROADMAP.md, modules still to port, item {item})")
+
+
+def _plan(cfg: ModelConfig):
+    """(pre_kinds, scan_kind, n_scan, post_kinds) — how depth is laid out."""
+    _require_ported(cfg)
+    return [], "attn", cfg.num_layers, []
+
+
+# ===================================================================== init
+def init_params(cfg: ModelConfig, seed: int = 0, *, dtype=torch.bfloat16,
+                device=None) -> Params:
+    """Random weights at the reference's scales (`model.py:40-133`), from a
+    torch generator on the device (not the reference's numbers)."""
+    _, _, n, _ = _plan(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d, V, ff = cfg.d_model, cfg.vocab_size, cfg.d_ff
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def normal(shape, std):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        # one layer at a time: the f32 draw never exceeds one layer's size
+        for sub in (out if len(shape) == 3 else [out]):
+            sub.copy_(torch.randn(sub.shape, generator=gen, device=dev) * std)
+        return out
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    attn = {"wq": normal((n, d, H * hd), d ** -0.5),
+            "wk": normal((n, d, KV * hd), d ** -0.5),
+            "wv": normal((n, d, KV * hd), d ** -0.5),
+            "wo": normal((n, H * hd, d), (H * hd) ** -0.5)}
+    if cfg.qk_norm:
+        attn["q_norm"] = ones(n, hd)
+        attn["k_norm"] = ones(n, hd)
+    p: Params = {
+        "embed": normal((V, d), d ** -0.5),
+        "final_norm": ones(d),
+        "pre": [],
+        "scan": {"ln1": ones(n, d), "attn": attn, "ln2": ones(n, d),
+                 "mlp": {"gate": normal((n, d, ff), d ** -0.5),
+                         "up": normal((n, d, ff), d ** -0.5),
+                         "down": normal((n, ff, d), ff ** -0.5)}},
+        "post": [],
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = normal((V, d), d ** -0.5)
+    return p
+
+
+# ==================================================================== cache
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               dtype=torch.bfloat16, device=None) -> Params:
+    _, _, n, _ = _plan(cfg)
+    one = A.make_cache(cfg, batch, s_max, dtype, resolve_device(device))
+    return {"pre": [],
+            "scan": {k: v[None].repeat_interleave(n, dim=0)
+                     for k, v in one.items()},
+            "post": []}
+
+
+def _layer(tree, i: int):
+    """Layer `i` of a stacked tree, as views (writes reach the stack)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ============================================================ layer apply
+def apply_layer(lp: Params, x, positions, cfg: ModelConfig, kind: str, *,
+                mode: str,                       # "prefill" | "decode"
+                cache=None, use_kernels: bool = False):
+    """One dense decoder layer. Returns (x, cache)."""
+    if kind != "attn":
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
+                                  "(ROADMAP.md, modules still to port, item 9)")
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if mode == "decode":
+        attn_out, cache = A.attn_decode(
+            lp["attn"], h, positions, cache, cfg,
+            decode_attn_fn=kops.decode_attention if use_kernels else None)
+    else:
+        attn_out, cache = A.attn_prefill(lp["attn"], h, positions, cfg,
+                                         cache=cache)
+    x = x + attn_out
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    x = x + L.glu_mlp(h, lp["mlp"]["gate"], lp["mlp"]["up"],
+                      lp["mlp"]["down"], act=cfg.act)
+    return x, cache
+
+
+# ================================================================= drivers
+def _head(params, cfg: ModelConfig, x):
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return L.lm_logits(x, table)[:, 0]
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict, cache):
+    """Prompt processing: forward + cache fill. batch: {"tokens": (B, S),
+    optional "positions": (B, S)}. Returns (last_logits (B, V), cache).
+    Prefill attention is plain torch (the reference's is jnp, no kernel)."""
+    _, scan_kind, n, _ = _plan(cfg)
+    tokens = batch["tokens"]
+    x = L.embed(tokens.long(), params["embed"])
+    B, S = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+    for i in range(n):
+        x, _ = apply_layer(_layer(params["scan"], i), x, positions, cfg,
+                           scan_kind, mode="prefill",
+                           cache=_layer(cache["scan"], i))
+    return _head(params, cfg, x[:, -1:]), cache
+
+
+def decode_step(params, cfg: ModelConfig, tokens, positions, cache, *,
+                use_kernels: bool = False):
+    """One decode token. tokens/positions: (B,). Returns (logits (B, V),
+    cache). use_kernels routes decode attention through the CUDA kernel
+    (`kernels/ops.decode_attention`)."""
+    _, scan_kind, n, _ = _plan(cfg)
+    x = L.embed(tokens.long()[:, None], params["embed"])     # (B, 1, d)
+    for i in range(n):
+        x, _ = apply_layer(_layer(params["scan"], i), x, positions, cfg,
+                           scan_kind, mode="decode",
+                           cache=_layer(cache["scan"], i),
+                           use_kernels=use_kernels)
+    return _head(params, cfg, x), cache
+

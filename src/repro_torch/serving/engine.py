@@ -1,0 +1,154 @@
+"""Continuous-batching decode engine (real-compute path).
+
+Port of `repro/serving/engine.py`: the decode *instance* of the
+disaggregated deployment (paper §2.1). Prefill runs per admission into a
+one-slot cache that is then copied into the slot; decode proceeds in rounds
+over a fixed slot array. Admission, slot insert, `decode_round` and
+`run_trace` keep the reference's semantics, and prompt tokens come from the
+same `np.random.default_rng(seed)`, so a seeded trace is the same on both
+sides. Greedy argmax is taken on the device, with one host copy per round.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import model as MD
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.kv_cache import PageTableManager, spec_for
+from repro_torch.serving.request import Phase, Request
+
+
+@dataclasses.dataclass
+class EngineMetrics:
+    decode_rounds: int = 0
+    tokens_out: int = 0
+    prefills: int = 0
+    rejected_admissions: int = 0
+    round_batch_sizes: List[int] = dataclasses.field(default_factory=list)
+    # host-clock seconds of each decode round / admission prefill; each
+    # ends in a device-to-host copy of its tokens, which waits for the device
+    round_s: List[float] = dataclasses.field(default_factory=list)
+    prefill_s: List[float] = dataclasses.field(default_factory=list)
+
+
+class ServingEngine:
+    """Slot-based continuous batching over a fixed decode batch."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 8,
+                 s_max: int = 256, use_kernels: bool = False,
+                 page_tokens: int = 16, num_pages: Optional[int] = None,
+                 seed: int = 0, device=None):
+        self.cfg = cfg
+        self.params = params
+        self.device = resolve_device(device)
+        self.max_slots = max_slots
+        self.s_max = s_max
+        self.use_kernels = use_kernels
+        self.rng = np.random.default_rng(seed)
+        # bf16 cache whatever the params' dtype, as in the reference engine
+        self.cache = MD.init_cache(cfg, max_slots, s_max, device=self.device)
+        self.metrics = EngineMetrics()
+        # page accounting (Harli's allocator plugs in via set_usable)
+        npages = num_pages or max_slots * (-(-s_max // page_tokens))
+        self.pages = PageTableManager(spec_for(cfg, npages, page_tokens),
+                                      max_slots, -(-s_max // page_tokens))
+        self.slots: List[Optional[Request]] = [None] * max_slots
+        self.last_token = np.zeros((max_slots,), np.int32)
+
+    # ------------------------------------------------------------- admit --
+    def try_admit(self, req: Request, prompt_tokens: np.ndarray) -> bool:
+        slot = next((i for i, s in enumerate(self.slots) if s is None), None)
+        if slot is None or not self.pages.admit(slot, req.prompt_len):
+            self.metrics.rejected_admissions += 1
+            return False
+        t0 = time.perf_counter()
+        req.slot, req.phase = slot, Phase.PREFILLING
+        self.slots[slot] = req
+        batch = {"tokens": torch.as_tensor(prompt_tokens[None, :],
+                                           device=self.device)}
+        one_cache = MD.init_cache(self.cfg, 1, self.s_max, device=self.device)
+        logits, one_cache = MD.prefill(self.params, self.cfg, batch,
+                                       one_cache)
+        self._insert_slot_cache(slot, one_cache)
+        tok = int(torch.argmax(logits[0]))
+        self.metrics.prefill_s.append(time.perf_counter() - t0)
+        self.last_token[slot] = tok
+        req.generated = 1
+        req.phase = Phase.DECODING
+        self.metrics.prefills += 1
+        self.metrics.tokens_out += 1
+        return True
+
+    def _insert_slot_cache(self, slot: int, one_cache) -> None:
+        for name, dst in self.cache["scan"].items():
+            dst[:, slot] = one_cache["scan"][name][:, 0]
+
+    # ------------------------------------------------------------- rounds --
+    def active_requests(self) -> List[Request]:
+        return [r for r in self.slots if r is not None and
+                r.phase == Phase.DECODING]
+
+    def decode_round(self) -> Dict[int, int]:
+        """One decode step over all active slots. Returns {rid: token}."""
+        active = [(i, r) for i, r in enumerate(self.slots)
+                  if r is not None and r.phase == Phase.DECODING]
+        if not active:
+            return {}
+        t0 = time.perf_counter()
+        tokens = torch.tensor(self.last_token, device=self.device)
+        positions = np.zeros((self.max_slots,), np.int32)
+        for i, r in active:
+            positions[i] = r.context_len  # index of the token being written
+        logits, self.cache = MD.decode_step(
+            self.params, self.cfg, tokens,
+            torch.tensor(positions, device=self.device), self.cache,
+            use_kernels=self.use_kernels)
+        next_tokens = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        self.metrics.round_s.append(time.perf_counter() - t0)
+
+        out: Dict[int, int] = {}
+        self.metrics.decode_rounds += 1
+        self.metrics.round_batch_sizes.append(len(active))
+        for i, r in active:
+            if not self.pages.extend(r.slot, 1):
+                continue  # memory pressure: request stalls this round
+            self.last_token[i] = next_tokens[i]
+            r.generated += 1
+            self.metrics.tokens_out += 1
+            out[r.rid] = int(next_tokens[i])
+            if r.generated >= r.max_new_tokens or \
+                    r.context_len >= self.s_max - 1:
+                r.phase = Phase.DONE
+                self.pages.release(r.slot)
+                self.slots[i] = None
+        return out
+
+    # ---------------------------------------------------------------- run --
+    def run_trace(self, reqs: List[Request], vocab: Optional[int] = None,
+                  max_rounds: int = 10_000) -> EngineMetrics:
+        """Drive the engine to completion in round-order (arrival order)."""
+        vocab = vocab or self.cfg.vocab_size
+        pending = sorted(reqs, key=lambda r: r.arrival)
+        qi = 0
+        rounds = 0
+        while rounds < max_rounds:
+            while qi < len(pending):
+                r = pending[qi]
+                toks = self.rng.integers(0, vocab, size=r.prompt_len,
+                                         dtype=np.int32)
+                if self.try_admit(r, toks):
+                    qi += 1
+                else:
+                    break
+            if not self.active_requests() and qi >= len(pending):
+                break
+            self.decode_round()
+            rounds += 1
+        return self.metrics

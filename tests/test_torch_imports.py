@@ -1,0 +1,109 @@
+"""Hygiene of the port: it imports neither JAX nor the JAX package, its
+entry points refuse to run without a card unless asked for the CPU, configs
+it does not run yet raise, and interop round trips are exact."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import model as JMD  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.interop import to_numpy, to_torch  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model as TMD  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_configs_match_reference():
+    """The port's copies of the configs equal the reference's, field by
+    field (repr covers every field, the LoRA config included)."""
+    for name in jconfigs._MODULES:
+        assert repr(tconfigs.get_config(name)) == \
+            repr(jconfigs.get_config(name))
+        assert repr(tconfigs.smoke_config(name)) == \
+            repr(jconfigs.smoke_config(name))
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfigs.smoke_config("llama3-8b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TMD.init_params(cfg)
+    params = TMD.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke", "--requests", "1"])
+    m = serve.main(["--smoke", "--requests", "2", "--device", "cpu",
+                    "--use-kernels"])
+    assert m.prefills == 2 and m.decode_rounds > 0
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b",
+                                  "mamba2-780m", "recurrentgemma-2b",
+                                  "seamless-m4t-large-v2",
+                                  "phi-3-vision-4.2b", "h2o-danube-1.8b"])
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TMD.init_params(tconfigs.smoke_config(arch), device="cpu")
+
+
+def _assert_same_bits(a, b):
+    assert type(a) is type(b)
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _assert_same_bits(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_same_bits(x, y)
+    else:
+        a = np.asarray(a)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def test_interop_round_trips_are_exact():
+    cfg = jconfigs.smoke_config("llama3-8b")
+    params = jax.tree.map(np.asarray, JMD.init_params(cfg,
+                                                      jax.random.PRNGKey(0)))
+    cache = jax.tree.map(np.asarray, JMD.init_cache(cfg, 2, 16))
+    for tree in (params, cache):
+        back = to_numpy(to_torch(tree))
+        _assert_same_bits(tree, back)
+    t = to_torch(params)
+    assert t["scan"]["attn"]["wq"].dtype == torch.bfloat16
+    assert t["scan"]["attn"]["wq"].shape == params["scan"]["attn"]["wq"].shape
+    assert t["pre"] == [] and t["post"] == []
+    tc = TMD.init_cache(tconfigs.smoke_config("llama3-8b"), 2, 16,
+                        device="cpu")
+    _assert_same_bits(cache, to_numpy(tc))

@@ -1,0 +1,207 @@
+"""Serving substrate of the port: continuous batching, page tables, paged
+pool gather/scatter, and greedy tokens of a seeded trace against JAX's
+ServingEngine on the same weights.
+
+The reference engine's `_insert_slot_cache` writes `dst.at[slot]` on caches
+whose leading axis is the layer, so it puts layer 0 of the prefilled cache
+into layer `slot` of every slot. The port inserts at `[:, slot]`; the token
+comparison runs the reference with that one method corrected (a subclass in
+this file; the JAX package is unchanged)."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.models import attention as JA  # noqa: E402
+from repro.models import model as JMD  # noqa: E402
+from repro.models.config import ModelConfig as JConfig  # noqa: E402
+from repro.serving import kv_cache as JKV  # noqa: E402
+from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
+from repro.serving.request import Request as JRequest  # noqa: E402
+from repro_torch.interop import to_numpy, to_torch  # noqa: E402
+from repro_torch.kernels import decode_attention as K  # noqa: E402
+from repro_torch.models import model as TMD  # noqa: E402
+from repro_torch.models.config import ModelConfig as TConfig  # noqa: E402
+from repro_torch.serving import kv_cache as TKV  # noqa: E402
+from repro_torch.serving.engine import ServingEngine as TEngine  # noqa: E402
+from repro_torch.serving.request import Request as TRequest  # noqa: E402
+
+TINY = dict(name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
+            num_kv_heads=2, d_ff=96, vocab_size=256)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    params_j = JMD.init_params(JConfig(**TINY), jax.random.PRNGKey(0))
+    return params_j, to_torch(params_j)
+
+
+def _trace(R):
+    return [R(rid=i, arrival=i * 0.01, prompt_len=8 + i, max_new_tokens=6)
+            for i in range(6)]
+
+
+def test_engine_continuous_batching(tiny):
+    eng = TEngine(TConfig(**TINY), tiny[1], max_slots=4, s_max=64,
+                  device="cpu")
+    reqs = _trace(TRequest)
+    m = eng.run_trace(reqs)
+    assert m.prefills == 6
+    assert m.tokens_out == 6 * 6
+    assert max(m.round_batch_sizes) == 4        # slots saturate
+    assert all(r.phase.value == "done" for r in reqs)
+    assert len(m.round_s) == m.decode_rounds and len(m.prefill_s) == 6
+
+
+def test_engine_memory_pressure_rejects(tiny):
+    eng = TEngine(TConfig(**TINY), tiny[1], max_slots=4, s_max=64,
+                  num_pages=4, page_tokens=16, device="cpu")
+    r = TRequest(rid=0, arrival=0.0, prompt_len=60, max_new_tokens=4)
+    assert eng.try_admit(r, np.arange(60, dtype=np.int32) % 256)
+    r2 = TRequest(rid=1, arrival=0.0, prompt_len=60, max_new_tokens=4)
+    assert not eng.try_admit(r2, np.arange(60, dtype=np.int32) % 256)
+
+
+def test_slot_insert_places_prefill_cache_in_its_slot(tiny):
+    cfg = TConfig(**TINY)
+    eng = TEngine(cfg, tiny[1], max_slots=3, s_max=32, device="cpu")
+    prompt = np.arange(10, dtype=np.int32) * 7 % 256
+    for rid in range(2):                         # request 1 lands in slot 1
+        assert eng.try_admit(TRequest(rid=rid, arrival=0.0, prompt_len=10,
+                                      max_new_tokens=4), prompt)
+    direct = TMD.init_cache(cfg, 1, 32, device="cpu")
+    TMD.prefill(tiny[1], cfg, {"tokens": torch.from_numpy(prompt[None])},
+                direct)
+    for name, t in eng.cache["scan"].items():
+        torch.testing.assert_close(t[:, 1], direct["scan"][name][:, 0])
+    assert torch.all(eng.cache["scan"]["kv_pos"][:, 2] == -1)   # untouched
+
+
+class _JEngineSlotFixed(JEngine):
+    def _insert_slot_cache(self, slot, one_cache):
+        self.cache = jax.tree.map(lambda d, s: d.at[:, slot].set(s[:, 0]),
+                                  self.cache, one_cache)
+
+
+def _drive(eng, reqs):
+    """run_trace's loop, recording every request's greedy tokens."""
+    toks = {r.rid: [] for r in reqs}
+    qi = 0
+    while True:
+        while qi < len(reqs):
+            r = reqs[qi]
+            prompt = eng.rng.integers(0, eng.cfg.vocab_size,
+                                      size=r.prompt_len, dtype=np.int32)
+            if not eng.try_admit(r, prompt):
+                break
+            toks[r.rid].append(int(eng.last_token[r.slot]))
+            qi += 1
+        if not eng.active_requests() and qi >= len(reqs):
+            return toks
+        for rid, t in eng.decode_round().items():
+            toks[rid].append(t)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_engine_greedy_tokens_match_reference(tiny, use_kernels):
+    """bf16 weights and cache, as served; same seed on both sides."""
+    expect = _drive(_JEngineSlotFixed(JConfig(**TINY), tiny[0], max_slots=4,
+                                      s_max=64, use_kernels=use_kernels),
+                    _trace(JRequest))
+    before = K.PLAIN_CALLS
+    got = _drive(TEngine(TConfig(**TINY), tiny[1], max_slots=4, s_max=64,
+                         use_kernels=use_kernels, device="cpu"),
+                 _trace(TRequest))
+    assert got == expect
+    assert (K.PLAIN_CALLS > before) == use_kernels
+
+
+def test_page_table_manager_matches_reference():
+    rng = np.random.default_rng(0)
+    mgrs = [M.PageTableManager(M.PagePoolSpec(n_layers=2, num_pages=32,
+                                              page_tokens=8, kv_heads=2,
+                                              head_dim=16), 8, 8)
+            for M in (JKV, TKV)]
+    for _ in range(200):
+        op, slot, n = rng.integers(0, 4), int(rng.integers(0, 8)), \
+            int(rng.integers(1, 40))
+        res = []
+        for m in mgrs:
+            if op == 0 and slot not in m.tables:
+                res.append(m.admit(slot, n))
+            elif op == 1 and slot in m.tables:
+                res.append(m.extend(slot, n))
+            elif op == 2:
+                res.append(m.release(slot))
+            else:
+                res.append(m.set_usable(int(n)))
+        assert res[0] == res[1]
+        assert mgrs[0].tables == mgrs[1].tables
+        np.testing.assert_array_equal(mgrs[0].table_array(list(range(8))),
+                                      mgrs[1].table_array(list(range(8))))
+
+
+def test_paged_read_write_and_positions_match_reference():
+    rng = np.random.default_rng(1)
+    L, P, ptok, KV, hd, B = 2, 10, 4, 2, 8, 3
+    pool = rng.normal(size=(L, 2, P, ptok, KV, hd)).astype(np.float32)
+    table = np.array([[3, 1, -1], [0, 5, 7], [9, -1, -1]], np.int32)
+    lengths = np.array([6, 12, 2], np.int32)
+    positions = np.array([5, 11, 1], np.int32)
+    kn = rng.normal(size=(B, KV, hd)).astype(np.float32)
+    vn = rng.normal(size=(B, KV, hd)).astype(np.float32)
+    pj = JKV.paged_write(jnp.asarray(pool), jnp.asarray(table), 1,
+                         jnp.asarray(positions), jnp.asarray(kn),
+                         jnp.asarray(vn))
+    pt = TKV.paged_write(*to_torch([pool, table]), 1,
+                         *to_torch([positions, kn, vn]))
+    np.testing.assert_array_equal(to_numpy(pt), np.asarray(pj))
+    for kt, kj in zip(TKV.paged_read(pt, torch.from_numpy(table), 1),
+                      JKV.paged_read(pj, jnp.asarray(table), 1)):
+        np.testing.assert_array_equal(to_numpy(kt), np.asarray(kj))
+    np.testing.assert_array_equal(
+        to_numpy(TKV.kv_positions(*to_torch([table, lengths]), ptok)),
+        np.asarray(JKV.kv_positions(jnp.asarray(table),
+                                    jnp.asarray(lengths), ptok)))
+
+
+def test_paged_pool_roundtrip_matches_dense():
+    """paged_write + the paged decode wrapper reproduce dense decode
+    attention through a page-table indirection (as in test_serving.py)."""
+    rng = np.random.default_rng(2)
+    spec = TKV.PagePoolSpec(n_layers=1, num_pages=12, page_tokens=8,
+                            kv_heads=2, head_dim=16, dtype=torch.float32)
+    pool = spec.alloc("cpu")
+    mgr = TKV.PageTableManager(spec, max_slots=3, max_pages_per_seq=4)
+    lengths = [11, 19, 5]
+    for slot, ln in enumerate(lengths):
+        assert mgr.admit(slot, ln)
+    table = torch.from_numpy(mgr.table_array([0, 1, 2]))
+    dense_k = np.zeros((3, 32, 2, 16), np.float32)
+    dense_v = np.zeros((3, 32, 2, 16), np.float32)
+    for pos in range(max(lengths)):
+        kn = rng.normal(size=(3, 2, 16)).astype(np.float32)
+        vn = rng.normal(size=(3, 2, 16)).astype(np.float32)
+        p = [min(pos, ln - 1) for ln in lengths]
+        TKV.paged_write(pool, table, 0, torch.tensor(p, dtype=torch.int32),
+                        torch.from_numpy(kn), torch.from_numpy(vn))
+        for s_ in range(3):
+            dense_k[s_, p[s_]] = kn[s_]
+            dense_v[s_, p[s_]] = vn[s_]
+    q = rng.normal(size=(3, 4, 16)).astype(np.float32)
+    out = K.paged_decode_attention(torch.from_numpy(q), pool[0, 0],
+                                   pool[0, 1], table,
+                                   torch.tensor(lengths, dtype=torch.int32))
+    kv_pos = np.full((3, 32), -1, np.int32)
+    for s_, ln in enumerate(lengths):
+        kv_pos[s_, :ln] = np.arange(ln)
+    ref = JA.decode_attn_ref(jnp.asarray(q), jnp.asarray(dense_k),
+                             jnp.asarray(dense_v), jnp.asarray(kv_pos),
+                             jnp.asarray([ln - 1 for ln in lengths],
+                                         jnp.int32))
+    np.testing.assert_allclose(to_numpy(out), np.asarray(ref),
+                               atol=3e-5, rtol=3e-5)
