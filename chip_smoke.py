@@ -17,7 +17,24 @@ Phases, in order; any failure ends the run with a nonzero exit:
      decode step with and without the kernel on the same cache, and K1 timed
      on that cache;
   4. a profiler window over decode steps: device time by kernel, the
-     device's busy share, and the host's CUDA launch/copy/sync calls.
+     device's busy share, and the host's CUDA launch/copy/sync calls;
+  5. the LoRA matmul kernel (K2) against its plain torch version on the card
+     at the training path's shapes (M 2048: gate 4096->14336, k/v
+     4096->1024, down 14336->4096, bf16; the transposed-W dx form of gate
+     and down; ragged 37x200x130 and 128x256x128 in f32), timed beside its
+     bound, the plain version and a torch.matmul yardstick the port never
+     calls; and the autograd Function's backward against autograd of the
+     plain version;
+  6. training at full width: one PEFT iteration of llama3-8b (the weights
+     of phase 3, micro-batch 2 x 1024 tokens, accum 1) through the layer
+     units with K2, its launches counted (32 x 7 + 32 x 14 = 672), then the
+     next microbatch's units with and without K2 from that state, loss and
+     grads held against each other;
+  7. co-located serving: rounds with k = 0 and k > 0 units profiled, the
+     latency predictor fit from them, and phase 3's 16 requests (then more
+     waves of 16, until the serving has run an iteration's worth of units
+     and an OPT) served through `ColocatedRunner(k_max=6,
+     use_kernels=True)` and the QoS scheduler, K1 and K2 launches counted.
 The second line from the end lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repository
 around it, the script exits nonzero and prints no result.
@@ -25,6 +42,7 @@ around it, the script exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -52,6 +70,28 @@ K1_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LOGIT_TOL = 0.25
 K1_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 K1_REPLACES = "src/repro/kernels/decode_attention.py:76"
+K2_SOURCE = "src/repro_torch/kernels/csrc/lora_matmul.cu"
+K2_REPLACES = "src/repro/kernels/lora_matmul.py:52"
+# K2 vs plain (tests/test_kernels.py's tolerances): bf16 rounds the output
+# (and xa) once, f32 sums in another order. Also max error over the RMS,
+# against the plain version before its final rounding: half a bf16 ulp of
+# an output up to 8x the RMS is 1.6e-2, while against the rounded plain
+# output a single flipped rounding of an output in [4, 8) x RMS (thousands
+# of them among 29M Gaussian outputs) would read 3.1e-2
+K2_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-4}
+K2_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+# the Function's backward vs autograd of the plain version: dA and dB are
+# bf16 products of bf16-rounded rank-r intermediates on the kernel side
+K2_BWD_REL_TOL = 5e-2
+# phase 6, units with K2 vs without: the loss relative, each accumulated
+# grad by its relative Frobenius error. The two paths round the adapted
+# projections at other points (once vs three times), and that bf16 noise
+# alone moves single grad entries: on the CPU at smoke width the per-leaf
+# max error over RMS is 0.14-0.20 while the Frobenius error is 0.02-0.03
+# (tests/test_torch_training.py measures the same against the reference).
+# The max error over RMS is printed beside it.
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_FROB_TOL = 5e-2
 
 
 def log(*args):
@@ -175,6 +215,369 @@ def k1_inputs(B, H, KV, hd, ptok, npg, dtype, seed):
     if B > 1:
         lengths[-1] = 1
     return q, kp, vp, pt, lengths
+
+
+# ------------------------------------------------------------------ K2 ----
+def k2_bound_ms(M, K, N, r, dtype):
+    """Least time for the same work: x, W, A, B read once and y written
+    once; 2*M*K*N + 2*M*K*r + 2*M*r*N flops over the type's peak."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (M * K + K * N + K * r + r * N + M * N) * item
+    flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k2_inputs(M, K, N, r, dtype, trans, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+    x = randn(M, K)
+    # W at the model's init scale; A as the adapters' init, B drawn too
+    w = randn(N, K, scale=K ** -0.5).t() if trans else \
+        randn(K, N, scale=K ** -0.5)
+    return x, w, randn(K, r, scale=K ** -0.5), randn(r, N, scale=0.05)
+
+
+def check_k2(K2, x, w, a, b, scale, label):
+    """K2 vs plain on one input, timed; returns the kernels-line numbers."""
+    M, K = x.shape
+    N, r = w.shape[1], a.shape[1]
+    got = K2.lora_matmul(x, w, a, b, scale)
+    expect = K2.lora_matmul_plain(x, w, a, b, scale)
+    unrounded = K2.lora_matmul_plain(x.float(), w, a, b, scale)
+    torch.cuda.synchronize()
+    err = (got.float() - expect.float()).abs().max().item()
+    rel = (got.float() - unrounded).abs().max().item() / \
+        unrounded.square().mean().sqrt().item()
+    tol, rel_tol = K2_TOL[x.dtype], K2_REL_TOL[x.dtype]
+    ok = torch.allclose(got.float(), expect.float(), atol=tol, rtol=tol) \
+        and rel <= rel_tol
+    ms = time_ms(lambda: K2.lora_matmul(x, w, a, b, scale))
+    plain_ms = time_ms(lambda: K2.lora_matmul_plain(x, w, a, b, scale),
+                       iters=10)
+    library_ms = time_ms(lambda: x @ w + scale * ((x @ a) @ b))
+    bound_ms, bound_by = k2_bound_ms(M, K, N, r, x.dtype)
+    log(f"K2 {label}: M={M} K={K} N={N} r={r} {str(x.dtype)[6:]} "
+        f"w_trans={int(not w.is_contiguous())} max_abs_err={err:.3e} "
+        f"(tol {tol}) max_err_over_rms={rel:.3e} (vs the unrounded plain "
+        f"output; tol {rel_tol}) ok={ok} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"bound_share={bound_ms / ms:.3f} "
+        f"tflops={2 * M * K * N / ms / 1e9:.1f}")
+    if not ok:
+        raise AssertionError(f"K2 disagrees with its plain version: {label}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def check_k2_backward(K2, kops, M, K, N, r):
+    """The Function's backward (dx through K2 with W read transposed, dA and
+    dB by torch.matmul) against autograd of the plain version, bf16."""
+    x, w, a, b = k2_inputs(M, K, N, r, torch.bfloat16, False, seed=21)
+    dy = k2_inputs(M, N, 1, 1, torch.bfloat16, False, seed=22)[0]
+    out = {}
+    for name, fn in (("kernel", kops.lora_matmul),
+                     ("plain", K2.lora_matmul_plain)):
+        xs, as_, bs = (t.detach().clone().requires_grad_() for t in (x, a, b))
+        fn(xs, w, as_, bs, 2.0).backward(dy)
+        out[name] = (xs.grad, as_.grad, bs.grad)
+    torch.cuda.synchronize()
+    for what, got, expect in zip(("dx", "dA", "dB"), out["kernel"],
+                                 out["plain"]):
+        err = (got.float() - expect.float()).abs().max().item()
+        rel = err / expect.float().square().mean().sqrt().item()
+        log(f"K2 backward {what}: M={M} K={K} N={N} r={r} bf16 "
+            f"max_abs_err={err:.3e} max_err_over_rms={rel:.3e} "
+            f"(tol {K2_BWD_REL_TOL})")
+        if rel > K2_BWD_REL_TOL or not torch.isfinite(got).all():
+            raise AssertionError(f"K2 backward {what} disagrees with "
+                                 "autograd of the plain version")
+
+
+def grad_agreement(got, expect):
+    """Per-leaf max error over the leaf's RMS and relative Frobenius error,
+    worst over the leaves of two {name: {"a", "b"}} trees of stacked
+    (layer, ...) grads; also where the worst max error sits."""
+    worst_rel, worst_frob, where = 0.0, 0.0, "-"
+    for name in sorted(expect):
+        for ab in ("a", "b"):
+            g, e = got[name][ab].double(), expect[name][ab].double()
+            if not e.any():             # dA while B is still 0: exactly 0
+                if g.any():
+                    return float("inf"), float("inf"), f"{name}.{ab}"
+                continue
+            diff = (g - e).abs()
+            rel = diff.max().item() / e.square().mean().sqrt().item()
+            if rel > worst_rel:
+                layer = int(diff.flatten().argmax()) // diff[0].numel()
+                worst_rel, where = rel, f"{name}.{ab} layer {layer}"
+            worst_frob = max(worst_frob, ((g - e).norm() / e.norm()).item())
+    return worst_rel, worst_frob, where
+
+
+def k2_launches_of_unit(P, cfg, pc, unit_idx):
+    """K2 launches of one unit: 7 per FWD, 14 per BWD (7 forward + 7 dx),
+    none in EMBED, HEAD, EMBED_BWD and OPT."""
+    upm = P.n_units_per_mb(cfg)
+    if unit_idx >= pc.accum * upm:
+        return 0
+    u = unit_idx % upm
+    if 1 <= u <= cfg.num_layers:
+        return 7
+    if cfg.num_layers + 2 <= u <= 2 * cfg.num_layers + 1:
+        return 14
+    return 0
+
+
+def unit_kind(P, cfg, pc, unit_idx):
+    upm = P.n_units_per_mb(cfg)
+    if unit_idx >= pc.accum * upm:
+        return "OPT"
+    u = unit_idx % upm
+    n = cfg.num_layers
+    return ("EMBED" if u == 0 else "FWD" if u <= n else "HEAD"
+            if u == n + 1 else "BWD" if u <= 2 * n + 1 else "EMBED_BWD")
+
+
+def phase5_k2(cfg):
+    """K2 against its plain version at the training path's shapes, timed;
+    the Function's backward against autograd of the plain version. Returns
+    the kernels-line numbers of the gate/up forward."""
+    from repro_torch.kernels import lora_matmul as K2
+    from repro_torch.kernels import ops as kops
+    # ------------------------------------------- 5. K2 vs plain, on card --
+    d, ff, kv = cfg.d_model, cfg.d_ff, cfg.num_kv_heads * cfg.head_dim
+    r = cfg.lora.rank
+    scale = cfg.lora.alpha / cfg.lora.rank
+    M = 2 * 1024                                # micro-batch 2 x seq 1024
+    k2_cases = [("gate/up", M, d, ff, torch.bfloat16, False),
+                ("k/v", M, d, kv, torch.bfloat16, False),
+                ("down", M, ff, d, torch.bfloat16, False),
+                ("dx of gate/up", M, ff, d, torch.bfloat16, True),
+                ("dx of down", M, d, ff, torch.bfloat16, True),
+                ("ragged", 37, 200, 130, torch.float32, False),
+                ("small", 128, 256, 128, torch.float32, False)]
+    k2_rows = {}
+    for i, (label, m_, k_, n_, dtype, trans) in enumerate(k2_cases):
+        x, w, a, b = k2_inputs(m_, k_, n_, r if m_ == M else 4, dtype,
+                               trans, seed=11 + i)
+        k2_rows[label] = check_k2(K2, x, w, a, b, scale, label)
+    check_k2_backward(K2, kops, M, d, kv, r)
+    return dict(k2_rows["gate/up"], shape=f"M {M} K {d} N {ff} r {r} bf16 "
+                "(gate/up forward)")
+
+
+def phase6_train(cfg, params, seq_len):
+    """One PEFT iteration through the layer units with K2, its launches
+    counted; then the next microbatch's units from that state (B no longer
+    0) with K2, timed warm, and without K2, loss and grads compared.
+    Returns K2's launches in the iteration."""
+    from repro_torch.kernels import lora_matmul as K2
+    from repro_torch.training import peft as P
+    from repro_torch.training.data import (DataConfig, Prefetcher,
+                                           SyntheticCorpus)
+    from repro_torch.tree import tree_map
+    # -------------------------------- 6. training at full width, with K2 --
+    pc = P.PeftConfig(micro_batch=2, seq_len=seq_len, accum=1)
+    staged = Prefetcher(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, pc.seq_len, pc.micro_batch, seed=0)).batches(),
+        pc.n_stage).stacked()
+    ft = P.init_ft_state(cfg, pc, params, 0, staged)
+    upm = P.n_units_per_mb(cfg)
+    unit = P.make_unit_step(cfg, pc, params, use_kernels=True)
+
+    def timed_units(state, n):
+        """n units, synchronized after each: (state, {kind: [s]})."""
+        times = {}
+        for _ in range(n):
+            kind = unit_kind(P, cfg, pc, state["unit_idx"])
+            t0 = time.perf_counter()
+            state = unit(state)
+            torch.cuda.synchronize()
+            times.setdefault(kind, []).append(time.perf_counter() - t0)
+        return state, times
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K2.LAUNCHES = 0
+    K2.PLAIN_CALLS = 0
+    t0 = time.perf_counter()
+    ft, cold = timed_units(ft, P.units_per_iteration(cfg, pc.accum))
+    iter_s = time.perf_counter() - t0
+    train_launches, train_plain = K2.LAUNCHES, K2.PLAIN_CALLS
+    peak_train = torch.cuda.max_memory_allocated()
+    state_bytes = tree_bytes(ft["adapters"]) + tree_bytes(
+        [ft["opt"]["m"], ft["opt"]["v"]]) + tree_bytes(ft["grads"]) + \
+        ft["residuals"].numel() * ft["residuals"].element_size()
+    b_moved = sum(int((v["b"] != 0).sum())
+                  for v in ft["adapters"]["scan"].values())
+    last_loss = float(ft["last_loss"])
+    n_k2 = cfg.num_layers * (7 + 14)
+    log(f"train: {cfg.name}, micro_batch 2 x seq {seq_len}, accum 1, "
+        f"LoRA r={cfg.lora.rank} on q/k/v/o/gate/up/down; one iteration of "
+        f"{P.units_per_iteration(cfg, 1)} units in {iter_s:.3f} s, the "
+        f"first of the run (synchronized after each unit)")
+    for kind, ts in cold.items():
+        log(f"train: first iteration {kind:9s} units={len(ts):3d} "
+            f"ms_median={1e3 * statistics.median(ts):.3f} "
+            f"ms_total={1e3 * sum(ts):.3f}")
+    log(f"train: K2 launches={train_launches} ({cfg.num_layers} x 7 + "
+        f"{cfg.num_layers} x 14 = {n_k2}), plain calls={train_plain}, "
+        f"iter={ft['iter']}, last_loss={last_loss:.4f} (ln V = "
+        f"{float(np.log(cfg.vocab_size)):.4f}), nonzero B entries after "
+        f"OPT={b_moved}, max_memory_allocated_gb={peak_train / 1e9:.3f}, "
+        f"adapters+opt+grads+residuals_gb={state_bytes / 1e9:.3f}")
+    if train_launches != n_k2 or train_plain:
+        raise AssertionError("the training iteration did not run through K2")
+    if ft["iter"] != 1 or not np.isfinite(last_loss) or \
+            abs(last_loss - float(np.log(cfg.vocab_size))) > 2.0 or \
+            b_moved == 0:
+        raise AssertionError("the training iteration did not make progress")
+
+    # the next microbatch, from a state whose adapters are no longer a
+    # no-op (at B = 0 both paths compute the same bits: the delta is 0 and
+    # the tensor-core sums run in the same order)
+    ft_plain = tree_map(
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, ft)
+    ft, warm = timed_units(ft, upm)
+    for kind, ts in warm.items():
+        log(f"train: warm {kind:9s} units={len(ts):3d} ms_median="
+            f"{1e3 * statistics.median(ts):.3f} ms_total={1e3 * sum(ts):.3f}")
+    unit_plain = P.make_unit_step(cfg, pc, params, use_kernels=False)
+    t0 = time.perf_counter()
+    ft_plain = P.run_units(unit_plain, ft_plain, upm)
+    torch.cuda.synchronize()
+    plain_mb_s = time.perf_counter() - t0
+    loss_k, loss_p = float(ft["loss"]), float(ft_plain["loss"])
+    g_rel, g_frob, g_where = grad_agreement(ft["grads"]["scan"],
+                                            ft_plain["grads"]["scan"])
+    log(f"train: second microbatch, units with K2 "
+        f"({1e3 * sum(map(sum, warm.values())):.3f} ms) vs without "
+        f"({1e3 * plain_mb_s:.3f} ms): loss {loss_k:.6f} vs {loss_p:.6f} "
+        f"(rtol {TRAIN_LOSS_RTOL}); grads worst relative Frobenius error="
+        f"{g_frob:.3e} (tol {TRAIN_GRAD_FROB_TOL}), worst max_err_over_rms="
+        f"{g_rel:.3e} ({g_where})")
+    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p) or \
+            g_frob > TRAIN_GRAD_FROB_TOL:
+        raise AssertionError("units with K2 disagree with units without")
+    return train_launches
+
+
+def phase7_colocated(cfg, params, eng, solo_round_s, seq_len):
+    """Profile rounds, fit the predictor, serve co-located with the QoS
+    scheduler (more waves of 16 requests until a finetune iteration
+    completes). Returns the K1 and K2 launches of the serving."""
+    from repro_torch.core import colocation as C
+    from repro_torch.core.scheduler import QoSScheduler, SchedulerConfig
+    from repro_torch.kernels import decode_attention as K
+    from repro_torch.kernels import lora_matmul as K2
+    from repro_torch.serving.engine import EngineMetrics
+    from repro_torch.serving.request import Request
+    from repro_torch.training import peft as P
+    from repro_torch.training.data import (DataConfig, Prefetcher,
+                                           SyntheticCorpus)
+    # ----------------------------------------- 7. co-located serving --
+    pc7 = P.PeftConfig(micro_batch=2, seq_len=seq_len, accum=1)
+    staged = Prefetcher(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, seq_len, 2, seed=1)).batches(), pc7.n_stage).stacked()
+    ft = P.init_ft_state(cfg, pc7, params, 1, staged)
+    runner = C.ColocatedRunner(cfg, params, cfg, params, pc7, k_max=6,
+                               use_kernels=True)
+    t0 = time.perf_counter()
+    solo, colo, ft = C.profile_rounds(
+        runner, eng.cache, ft, batch_sizes=(1, 4, 8),
+        contexts=(128, 320, 512), ks=(1, 3, 6), repeats=2)
+    pred = C.fit_predictor(6, solo, colo)
+    solo8 = statistics.median(s_ for bs, _, s_ in solo[1.0] if bs == 8)
+    qos_s = 1.5 * solo8
+    log(f"colo: profiled {len(solo[1.0])} solo and {len(colo)} co-located "
+        f"points in {time.perf_counter() - t0:.1f} s; fit: solo mean/max err "
+        f"{pred.report.solo_mean_err:.3f}/{pred.report.solo_max_err:.3f}, "
+        f"colo mean/max err {pred.report.colo_mean_err:.3f}/"
+        f"{pred.report.colo_max_err:.3f}")
+    for bs, ctx, s_ in solo[1.0]:
+        log(f"colo: profile solo bs={bs} ctx={ctx} ms={1e3 * s_:.3f}")
+    for _, q_ft, bs, ctx, s_ in colo:
+        log(f"colo: profile k={round(q_ft * 6)} bs={bs} ctx={ctx} "
+            f"ms={1e3 * s_:.3f}")
+    log(f"colo: qos_s={qos_s:.4f} = 1.5 x the median measured solo round at "
+        f"8 slots ({1e3 * solo8:.3f} ms). This is not the paper's 40 ms SLO "
+        f"(SchedulerConfig.qos_s): the target follows this card's own eager, "
+        f"host-bound solo round, since under a target below the solo round "
+        f"the scheduler picks k = 0 every round")
+    # the least target under which the fitted predictor admits one unit at
+    # 8 slots and a mid context even once violations have shrunk the
+    # scheduler's margin to its floor; if 1.5 x solo is below it, units
+    # would stop after the first few slow rounds, so the target is raised
+    # to it and the run says so
+    admit_one = pred.predict_colo(1 / 6, 8, 320) / \
+        SchedulerConfig.margin_floor
+    if admit_one > qos_s:
+        log(f"colo: qos_s raised to {admit_one:.4f}: under {qos_s:.4f} the "
+            f"predictor admits no unit at 8 slots once the margin is at its "
+            f"floor {SchedulerConfig.margin_floor} (k = 1 predicted at "
+            f"{1e3 * admit_one * SchedulerConfig.margin_floor:.3f} ms)")
+        qos_s = admit_one
+    sched = QoSScheduler(pred, SchedulerConfig(qos_s=qos_s, k_max=6))
+    eng.metrics = EngineMetrics()
+    u0, it0, mb0 = ft["unit_idx"], ft["iter"], ft["consumed"]
+    colo_reqs = []
+    K.LAUNCHES = K.PLAIN_CALLS = 0
+    K2.LAUNCHES = K2.PLAIN_CALLS = 0
+    total_units = P.units_per_iteration(cfg, pc7.accum)
+    t0 = time.perf_counter()
+    # more waves of requests until the serving itself has run a whole
+    # iteration's worth of units and at least one OPT
+    for wave in range(4):
+        rng = np.random.default_rng(wave)
+        wave_reqs = [Request(rid=100 * (wave + 1) + i, arrival=i * 0.01,
+                             prompt_len=int(rng.integers(64, 513)),
+                             max_new_tokens=32) for i in range(16)]
+        colo_reqs += wave_reqs
+        m7, ft = C.run_colocated_trace(eng, runner, sched, ft, wave_reqs)
+        if ft["iter"] > it0 and m7.ft_units >= total_units:
+            break
+    torch.cuda.synchronize()
+    wall7 = time.perf_counter() - t0
+    units = m7.ft_units
+    k1_7, k1p_7 = K.LAUNCHES, K.PLAIN_CALLS
+    k2_7, k2p_7 = K2.LAUNCHES, K2.PLAIN_CALLS
+    k2_expect = sum(k2_launches_of_unit(P, cfg, pc7, (u0 + j) % total_units)
+                    for j in range(units))
+    ks = [dd.k for dd in sched.decisions]
+    reasons = collections.Counter(dd.reason for dd in sched.decisions)
+    mbs = ft["consumed"] - mb0
+    log(f"colo: {len(colo_reqs)} requests in {len(colo_reqs) // 16} wave(s) "
+        f"of 16 (phase 3's prompts first), rounds={m7.decode_rounds} "
+        f"tokens_out={m7.tokens_out} wall_s={wall7:.3f} "
+        f"round_ms_median={1e3 * statistics.median(m7.round_s):.3f} "
+        f"round_ms_p90={1e3 * float(np.percentile(m7.round_s, 90)):.3f} "
+        f"(solo phase-3 round_ms_median="
+        f"{1e3 * statistics.median(solo_round_s):.3f}) mean_k="
+        f"{statistics.mean(ks):.3f} reasons={dict(reasons)} "
+        f"violations={sched.violations}")
+    log(f"colo: units={units} iterations={ft['iter'] - it0} microbatches="
+        f"{mbs} finetune_tokens_per_s={mbs * 2 * seq_len / wall7:.1f} "
+        f"last_loss={float(ft['last_loss']):.4f} K1 launches={k1_7} "
+        f"({cfg.num_layers} x {m7.decode_rounds} rounds = "
+        f"{cfg.num_layers * m7.decode_rounds}) "
+        f"K2 launches={k2_7} (expected from the units run: {k2_expect}) "
+        f"plain calls={k1p_7 + k2p_7}")
+    if not all(rq.phase.value == "done" and rq.generated == 32
+               for rq in colo_reqs):
+        raise AssertionError("not every co-located request finished")
+    if k1_7 != cfg.num_layers * m7.decode_rounds or k2_7 != k2_expect or \
+            k1p_7 or k2p_7:
+        raise AssertionError("co-located rounds did not run through K1/K2")
+    if units < total_units or ft["iter"] <= it0:
+        raise AssertionError("co-located serving ran less than an iteration "
+                             "of finetune units")
+    return k1_7, k2_7
 
 
 def main() -> int:
@@ -343,10 +746,19 @@ def main() -> int:
     if not torch.allclose(a, b, atol=2e-4, rtol=2e-4):
         raise AssertionError("smoke-width decode step disagrees")
 
+    k2_main = phase5_k2(cfg)
+    train_launches = phase6_train(cfg, params, seq_len=1024)
+    k1_7, k2_7 = phase7_colocated(cfg, params, eng, m.round_s, seq_len=1024)
+
     log(f"card: {card_line()}")
-    log(json.dumps({"kernels": [dict(
-        name="decode_attention", route="cuda", source=K1_SOURCE,
-        replaces=K1_REPLACES, launches=launches, **main_k1)]}))
+    log(json.dumps({"kernels": [
+        dict(name="decode_attention", route="cuda", source=K1_SOURCE,
+             replaces=K1_REPLACES, launches=launches, **main_k1,
+             launches_by_path={"serve": launches, "colocated_serve": k1_7}),
+        dict(name="lora_matmul", route="cuda", source=K2_SOURCE,
+             replaces=K2_REPLACES, launches=k2_7, **k2_main,
+             launches_by_path={"train_iteration": train_launches,
+                               "colocated_serve": k2_7})]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,11 @@
 `np.asarray` accepts, such as a JAX array) into the port's tensors with the
 same structure: stacked `"scan"` leaves stay stacked and `pre`/`post`
 lists are kept. `to_numpy` goes back. bfloat16 crosses exactly, as a
-uint16 view of the same bits. The tests use this to give both sides the
-same weights and inputs.
+uint16 view of the same bits. A 0-d integer array becomes a Python int and
+a Python int a 0-d int32 array: the port keeps the finetune state's
+counters (`unit_idx`, `iter`, the optimizer's `t`, ...) on the host, where
+the reference keeps int32 scalars. So a JAX `ft_state` crosses both ways.
+The tests use this to give both sides the same weights and inputs.
 """
 
 from __future__ import annotations
@@ -16,15 +19,19 @@ import numpy as np
 import torch
 
 
-def _leaf_to_torch(x, device) -> torch.Tensor:
+def _leaf_to_torch(x, device):
     a = np.asarray(x)
+    if a.ndim == 0 and a.dtype.kind in "iu":
+        return int(a)
     if a.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.array(a.view(np.uint16)))
         return bits.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+def _leaf_to_numpy(t) -> np.ndarray:
+    if isinstance(t, int):
+        return np.asarray(t, np.int32)
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         # np.dtype("bfloat16") exists once ml_dtypes is loaded (JAX loads it)

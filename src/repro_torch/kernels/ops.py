@@ -1,11 +1,14 @@
-"""Layout adapters between the model's caches and the kernels.
+"""Layout adapters between the model and the kernels.
 
 `decode_attention` matches `attention.decode_attn_ref`'s signature so that
-`model.decode_step` can swap the paged decode kernel in. Unlike the
-reference adapter (`repro/kernels/ops.py`), it never falls back to the
-dense oracle: a cache whose length 64 does not divide is read as one page
-per slot, and what the kernel cannot compute (windowed or int8 caches)
-raises.
+`model.decode_step` can swap the paged decode kernel in. `lora_matmul`
+flattens leading dimensions for the differentiable LoRA matmul kernel, as
+`repro/kernels/ops.py::lora_matmul` does; it pads nothing, since the
+kernel predicates ragged edges itself. Unlike the reference's decode
+adapter (`repro/kernels/ops.py`), `decode_attention` never falls back to
+the dense oracle: a cache whose length 64 does not divide is read as one
+page per slot, and what the kernel cannot compute (windowed or int8
+caches) raises.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import lora_matmul as _lm
 
 
 def decode_attention(q, kc, vc, kv_pos, positions, window: int = 0,
@@ -41,3 +45,12 @@ def decode_attention(q, kc, vc, kv_pos, positions, window: int = 0,
     return _da.paged_decode_attention(q.to(kc.dtype).contiguous(), k_pages,
                                       v_pages, page_table, lengths,
                                       scale=scale)
+
+
+def lora_matmul(x, w, a, b, scale: float):
+    """x: (..., K); w: (K, N); a: (K, r); b: (r, N) -> (..., N), through
+    `lora_matmul.LoRAMatmul` (gradients for x, a and b)."""
+    lead = x.shape[:-1]
+    y = _lm.LoRAMatmul.apply(x.reshape(-1, x.shape[-1]).contiguous(), w, a,
+                             b, float(scale))
+    return y.reshape(*lead, w.shape[1])

@@ -1,18 +1,25 @@
-"""Serving driver: one decode instance on the card (the port's serve path).
+"""Serving entry point: a decode instance, optionally co-located with PEFT
+(Harli).
 
-Mirrors `repro/launch/serve.py` without `--colocate`, which comes with the
-training slice (`core/colocation.py::ColocatedRunner`). Runs on `cuda`
-unless `--device cpu` is given.
+Port of `repro/launch/serve.py`. With `--colocate`, each decode round runs
+up to `--k-max` finetune layer units of `--ft-arch` (default: the served
+model, sharing its weights), as many as the QoS scheduler allows under
+`--qos-s`. The scheduler's latency predictor is fit from rounds measured
+on the device it runs on before serving starts (k = 0 rounds for
+the solo stage, k > 0 rounds for the co-located stage), not from the TPU
+cost model the reference uses. Runs on `cuda` unless `--device cpu` is
+given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --requests 12 --use-kernels
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke \
-      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --colocate --use-kernels
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import time
 
 import numpy as np
@@ -20,18 +27,28 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core.colocation import (ColocatedRunner, fit_predictor,
+                                         profile_rounds, run_colocated_trace)
+from repro_torch.core.scheduler import QoSScheduler, SchedulerConfig
 from repro_torch.models import model as MD
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.request import Request
+from repro_torch.training import peft as P
+from repro_torch.training.data import DataConfig, Prefetcher, SyntheticCorpus
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--ft-arch", default="")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--s-max", type=int, default=160)
+    ap.add_argument("--colocate", action="store_true")
+    ap.add_argument("--k-max", type=int, default=6)
+    ap.add_argument("--qos-s", type=float, default=SchedulerConfig.qos_s,
+                    help="decode-round latency target of the scheduler")
     ap.add_argument("--use-kernels", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -48,13 +65,54 @@ def main(argv=None):
                     max_new_tokens=int(rng.integers(4, 12)))
             for i in range(args.requests)]
 
+    if not args.colocate:
+        t0 = time.time()
+        m = eng.run_trace(reqs, max_rounds=3000)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        print(f"arch={cfg.name} device={device} rounds={m.decode_rounds} "
+              f"tokens={m.tokens_out} prefills={m.prefills} "
+              f"wall={time.time() - t0:.1f}s")
+        return m
+
+    ft_name = args.ft_arch or args.arch
+    if ft_name == args.arch:
+        cfg_ft, params_ft = cfg, params          # one copy of the weights
+    else:
+        cfg_ft = smoke_config(ft_name) if args.smoke else get_config(ft_name)
+        params_ft = MD.init_params(cfg_ft, 1, device=device)
+    pc = P.PeftConfig(micro_batch=2, seq_len=32, accum=1)
+    pf = Prefetcher(SyntheticCorpus(DataConfig(
+        cfg_ft.vocab_size, pc.seq_len, pc.micro_batch)).batches(), pc.n_stage)
+    ft_state = P.init_ft_state(cfg_ft, pc, params_ft, 2, pf.stacked())
+    runner = ColocatedRunner(cfg, params, cfg_ft, params_ft, pc,
+                             k_max=args.k_max, use_kernels=args.use_kernels)
     t0 = time.time()
-    m = eng.run_trace(reqs, max_rounds=3000)
+    solo, colo, ft_state = profile_rounds(
+        runner, eng.cache, ft_state,
+        batch_sizes=sorted({1, max(args.slots // 2, 1), args.slots}),
+        contexts=sorted({args.s_max // 8, args.s_max // 4, args.s_max // 2}),
+        ks=sorted({1, max(args.k_max // 2, 1), args.k_max}), repeats=2)
+    pred = fit_predictor(args.k_max, solo, colo)
+    print(f"profiled {len(solo[1.0])} solo and {len(colo)} co-located "
+          f"points in {time.time() - t0:.1f}s: solo mean err "
+          f"{pred.report.solo_mean_err:.3f}, colo mean err "
+          f"{pred.report.colo_mean_err:.3f}")
+    sched = QoSScheduler(pred, SchedulerConfig(qos_s=args.qos_s,
+                                               k_max=args.k_max))
+    t0 = time.time()
+    m, ft_state = run_colocated_trace(eng, runner, sched, ft_state, reqs,
+                                      max_rounds=3000)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    wall = time.time() - t0
-    print(f"arch={cfg.name} device={device} rounds={m.decode_rounds} "
-          f"tokens={m.tokens_out} prefills={m.prefills} wall={wall:.1f}s")
+    reasons = collections.Counter(d.reason for d in sched.decisions)
+    print(f"arch={cfg.name} ft_arch={cfg_ft.name} device={device} "
+          f"rounds={m.decode_rounds} tokens={m.tokens_out} "
+          f"prefills={m.prefills} wall={time.time() - t0:.1f}s")
+    print(f"colocated finetune units executed: {m.ft_units} "
+          f"(iterations {ft_state['iter']}, last loss "
+          f"{float(ft_state['last_loss']):.4f}, qos_s {args.qos_s}, "
+          f"reasons {dict(reasons)})")
     return m
 
 

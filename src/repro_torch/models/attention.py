@@ -2,7 +2,7 @@
 
 Port of `repro/models/attention.py` for full (unwindowed, unquantized)
 caches. Two execution paths per layer:
-  * prefill: chunked flash attention over the whole sequence
+  * prefill/train: chunked flash attention over the whole sequence
   * decode: one-token attention against a KV cache (`decode_attn_ref`
     here; the CUDA kernel is swapped in by `kernels/ops.decode_attention`)
 
@@ -37,15 +37,13 @@ def make_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 
 # ------------------------------------------------------------- GQA paths ---
-def _project_qkv(p: Params, x, cfg: ModelConfig, lora, lora_scale):
+def _project_qkv(p: Params, x, cfg: ModelConfig, lora, lora_scale,
+                 use_kernels: bool = False):
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def proj(w, name, n_out):
-        y = x @ w.to(x.dtype)
-        if lora is not None and name in lora:
-            a, b = lora[name]
-            y = y + lora_scale * ((x @ a.to(x.dtype)) @ b.to(x.dtype))
+        y = L.lora_proj(x, w, lora, name, lora_scale, use_kernels)
         return y.reshape(B, S, n_out, hd)
 
     q = proj(p["wq"], "q", H)
@@ -57,26 +55,25 @@ def _project_qkv(p: Params, x, cfg: ModelConfig, lora, lora_scale):
     return q, k, v
 
 
-def _out_proj(p: Params, o, cfg: ModelConfig, lora, lora_scale):
+def _out_proj(p: Params, o, cfg: ModelConfig, lora, lora_scale,
+              use_kernels: bool = False):
     B, S = o.shape[:2]
     o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    y = o @ p["wo"].to(o.dtype)
-    if lora is not None and "o" in lora:
-        a, b = lora["o"]
-        y = y + lora_scale * ((o @ a.to(o.dtype)) @ b.to(o.dtype))
-    return y
+    return L.lora_proj(o, p["wo"], lora, "o", lora_scale, use_kernels)
 
 
 def attn_prefill(p: Params, x, positions, cfg: ModelConfig, *,
                  cache: Optional[Dict] = None, lora=None,
-                 lora_scale: float = 0.0):
+                 lora_scale: float = 0.0, use_kernels: bool = False):
     """Full-sequence attention. positions: (B, S) absolute. Returns (out,
-    cache); the cache, when given, is written in place."""
-    q, k, v = _project_qkv(p, x, cfg, lora, lora_scale)
+    cache); the cache, when given, is written in place (None: the training
+    path's "full" mode). use_kernels routes the adapted projections through
+    the LoRA matmul kernel."""
+    q, k, v = _project_qkv(p, x, cfg, lora, lora_scale, use_kernels)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     o = L.flash_attention(q, k, v, causal=True, q_offset=positions[:, 0])
-    out = _out_proj(p, o, cfg, lora, lora_scale)
+    out = _out_proj(p, o, cfg, lora, lora_scale, use_kernels)
     if cache is not None:
         cache = _cache_write_prefill(cache, k, v, positions)
     return out, cache

@@ -1,10 +1,18 @@
-"""Shared neural building blocks: norms, RoPE, MLPs, flash attention.
+"""Shared neural building blocks: norms, RoPE, projections, MLPs, flash
+attention, embeddings and the losses.
 
 Port of `repro/models/layers.py`. The chunked online-softmax attention is
 plain torch, as the reference is plain jnp: prefill attention has no TPU
-kernel to port. It mirrors `_flash_fwd` (forward only; no custom backward
-yet) and returns 0 for fully masked rows, which is why the path does not
-call `scaled_dot_product_attention`.
+kernel to port. It mirrors `_flash_fwd` and returns 0 for fully masked
+rows, which is why the path does not call `scaled_dot_product_attention`;
+its backward is plain autograd (the reference's custom VJP recomputes the
+softmax blocks to save memory; the training units recompute one layer at a
+time, which bounds the same memory).
+
+`lora_proj` is the one projection helper that `glu_mlp` and the attention
+projections call. Without `use_kernels` it computes what the reference's
+einsums compute, rounding for rounding; with it, an adapted projection goes
+through the LoRA matmul kernel (`kernels/ops.lora_matmul`).
 """
 
 from __future__ import annotations
@@ -13,6 +21,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels import ops as kops
 
 
 # ---------------------------------------------------------------- norms ----
@@ -46,6 +57,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------- projections ----
+def lora_proj(x, w, lora, name: str, lora_scale: float,
+              use_kernels: bool = False) -> torch.Tensor:
+    """y = x @ W (+ s * (x @ A) @ B when `lora` has `name`), in x's dtype.
+
+    Plain: the reference's rounding points (each product rounded to x's
+    dtype, then the scaled delta, then the sum). With use_kernels, the
+    adapted projection is one LoRA matmul kernel launch (f32 sum, xa
+    rounded once, one rounding of the output); unadapted ones stay plain."""
+    w = w.to(x.dtype)
+    if lora is None or name not in lora:
+        return x @ w
+    a, b = lora[name]
+    a, b = a.to(x.dtype), b.to(x.dtype)
+    if use_kernels:
+        return kops.lora_matmul(x, w, a, b, lora_scale)
+    return x @ w + lora_scale * ((x @ a) @ b)
+
+
 # ----------------------------------------------------------------- MLPs ----
 def _act(name: str):
     return {"silu": F.silu,
@@ -53,20 +83,14 @@ def _act(name: str):
 
 
 def glu_mlp(x, gate_w, up_w, down_w, act: str = "silu",
-            lora=None, lora_scale: float = 0.0):
+            lora=None, lora_scale: float = 0.0, use_kernels: bool = False):
     """SwiGLU / GeGLU MLP with optional LoRA deltas.
 
     lora: dict with optional keys gate/up/down -> (A: (d, r), B: (r, ff))."""
-    def proj(h, w, key):
-        y = h @ w.to(h.dtype)
-        if lora is not None and key in lora:
-            a, b = lora[key]
-            y = y + lora_scale * ((h @ a.to(h.dtype)) @ b.to(h.dtype))
-        return y
-    g = proj(x, gate_w, "gate")
-    u = proj(x, up_w, "up")
+    g = lora_proj(x, gate_w, lora, "gate", lora_scale, use_kernels)
+    u = lora_proj(x, up_w, lora, "up", lora_scale, use_kernels)
     h = _act(act)(g.float()).to(x.dtype) * u
-    return proj(h, down_w, "down")
+    return lora_proj(h, down_w, lora, "down", lora_scale, use_kernels)
 
 
 # --------------------------------------------------- flash attention -------
@@ -143,3 +167,44 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def lm_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d); table: (V, d) -> logits (B, S, V)."""
     return x @ table.to(x.dtype).t()
+
+
+def _xent_chunk_sum(x, table, labels, mask):
+    """Sum of masked (lse - gold) over one chunk, logits in f32."""
+    logits = (x @ table.to(x.dtype).t()).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return ((lse - gold) * mask).sum()
+
+
+def chunked_softmax_xent(x, table, labels, mask=None, chunk: int = 256):
+    """Fused final projection + cross-entropy over sequence chunks.
+
+    Never holds (B, S, V): each chunk computes its logits, LSE and gold
+    score, and is recomputed in the backward pass (`torch.utils.checkpoint`,
+    the reference's `jax.checkpoint`), so autograd keeps no chunk's f32
+    logits. x: (B, S, d) final hidden states (normed, shifted); labels:
+    (B, S) aligned with x. Returns the masked mean."""
+    B, S, _ = x.shape
+    c = min(chunk, S)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    mask = mask.float()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, c):
+        sl = slice(s0, s0 + c)
+        tot = tot + checkpoint(_xent_chunk_sum, x[:, sl], table,
+                               labels[:, sl], mask[:, sl],
+                               use_reentrant=False)
+    return tot / torch.clamp(mask.sum(), min=1.0)
+
+
+def cross_entropy(logits, labels, mask=None):
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

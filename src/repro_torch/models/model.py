@@ -1,4 +1,4 @@
-"""Model assembly: the dense decoder's serving path.
+"""Model assembly: the dense decoder's serving and training paths.
 
 Port of the dense half of `repro/models/model.py`. Params are a dict of
 tensors under the JAX pytree's names:
@@ -7,7 +7,9 @@ tensors under the JAX pytree's names:
    "scan": {"ln1", "attn": {"wq", "wk", "wv", "wo", ["q_norm", "k_norm"]},
             "ln2", "mlp": {"gate", "up", "down"}}}   # leading axis = layer
 and caches mirror it: {"pre": [], "scan": {"k", "v", "kv_pos"}, "post": []}
-with k/v (n_layers, B, S_max, KV, hd).
+with k/v (n_layers, B, S_max, KV, hd), and LoRA adapters mirror it too:
+{"pre": [], "scan": {name: {"a": (n_layers, d_in, r), "b": ...}},
+ "post": []} with f32 leaves (`models/lora.py`).
 
 The reference's `jax.lax.scan` over the stacked params becomes a Python loop
 that indexes layer `i` and writes that layer's cache in place: the caller's
@@ -21,11 +23,13 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import lora as LR
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -103,6 +107,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, dtype=torch.bfloat16,
     return p
 
 
+def init_adapters(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+    """LoRA adapters mirroring pre/scan/post (f32 leaves, B = 0), A drawn
+    from a torch generator on the device (not the reference's numbers)."""
+    _, scan_kind, n, _ = _plan(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return {"pre": [],
+            "scan": LR.init_layer_adapters(gen, cfg, scan_kind, n,
+                                           device=dev),
+            "post": []}
+
+
 # ==================================================================== cache
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                dtype=torch.bfloat16, device=None) -> Params:
@@ -123,24 +140,32 @@ def _layer(tree, i: int):
 
 # ============================================================ layer apply
 def apply_layer(lp: Params, x, positions, cfg: ModelConfig, kind: str, *,
-                mode: str,                       # "prefill" | "decode"
-                cache=None, use_kernels: bool = False):
-    """One dense decoder layer. Returns (x, cache)."""
+                mode: str,               # "full" | "prefill" | "decode"
+                cache=None, lora=None, scale: float = 0.0,
+                use_kernels: bool = False):
+    """One dense decoder layer. Returns (x, cache).
+
+    lora: pairs form {name: (A, B)} of this layer's adapters. use_kernels
+    routes decode attention through the paged decode kernel and the
+    adapted projections through the LoRA matmul kernel."""
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
                                   "(ROADMAP.md, modules still to port, item 9)")
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mode == "decode":
         attn_out, cache = A.attn_decode(
-            lp["attn"], h, positions, cache, cfg,
+            lp["attn"], h, positions, cache, cfg, lora=lora,
+            lora_scale=scale,
             decode_attn_fn=kops.decode_attention if use_kernels else None)
     else:
-        attn_out, cache = A.attn_prefill(lp["attn"], h, positions, cfg,
-                                         cache=cache)
+        attn_out, cache = A.attn_prefill(
+            lp["attn"], h, positions, cfg, cache=cache, lora=lora,
+            lora_scale=scale, use_kernels=use_kernels)
     x = x + attn_out
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     x = x + L.glu_mlp(h, lp["mlp"]["gate"], lp["mlp"]["up"],
-                      lp["mlp"]["down"], act=cfg.act)
+                      lp["mlp"]["down"], act=cfg.act, lora=lora,
+                      lora_scale=scale, use_kernels=use_kernels)
     return x, cache
 
 
@@ -156,13 +181,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict, cache):
     optional "positions": (B, S)}. Returns (last_logits (B, V), cache).
     Prefill attention is plain torch (the reference's is jnp, no kernel)."""
     _, scan_kind, n, _ = _plan(cfg)
-    tokens = batch["tokens"]
-    x = L.embed(tokens.long(), params["embed"])
-    B, S = tokens.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device).expand(B, S)
+    x, positions, _ = _embed_inputs(params, cfg, batch)
     for i in range(n):
         x, _ = apply_layer(_layer(params["scan"], i), x, positions, cfg,
                            scan_kind, mode="prefill",
@@ -184,3 +203,64 @@ def decode_step(params, cfg: ModelConfig, tokens, positions, cache, *,
                            use_kernels=use_kernels)
     return _head(params, cfg, x), cache
 
+
+def _embed_inputs(params, cfg: ModelConfig, batch: Dict):
+    """Token embedding. Returns (x, positions, text_offset); the port runs
+    no frontend yet (`_plan` raises for one), so the offset is 0."""
+    tokens = batch["tokens"]
+    x = L.embed(tokens.long(), params["embed"])
+    B, S = x.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+    return x, positions, 0
+
+
+def forward(params, cfg: ModelConfig, batch: Dict, *, adapters=None,
+            use_kernels: bool = False, remat: bool = False,
+            return_hidden: bool = False):
+    """Full-sequence forward (train / eval). Returns (logits, aux_loss);
+    with return_hidden=True the normed final hidden states instead of
+    logits (loss_fn fuses the projection into the chunked CE). remat
+    recomputes each layer in the backward pass (`torch.utils.checkpoint`,
+    the reference's `jax.checkpoint` of the scan body)."""
+    _, scan_kind, n, _ = _plan(cfg)
+    x, positions, offset = _embed_inputs(params, cfg, batch)
+    scale = LR.lora_scale(cfg)
+    scan_ad = None if adapters is None else adapters["scan"]
+
+    def layer(h, i):
+        ad = None if scan_ad is None else LR.slice_adapters(scan_ad, i)
+        h, _ = apply_layer(_layer(params["scan"], i), h, positions, cfg,
+                           scan_kind, mode="full", lora=ad, scale=scale,
+                           use_kernels=use_kernels)
+        return h
+
+    for i in range(n):
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, i, use_reentrant=False)
+        else:
+            x = layer(x, i)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return x[:, offset:], aux
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return L.lm_logits(x[:, offset:], table), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict, *, adapters=None,
+            use_kernels: bool = False, remat: bool = True):
+    """Cross-entropy loss for (PEFT) training; the final projection is fused
+    into the chunked CE, which never holds the (B, S, V) logits."""
+    hidden, aux = forward(params, cfg, batch, adapters=adapters,
+                          use_kernels=use_kernels, remat=remat,
+                          return_hidden=True)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    ce = L.chunked_softmax_xent(hidden[:, :-1], table, labels[:, 1:],
+                                None if mask is None else mask[:, 1:])
+    # the dense path has no MoE aux loss and no MTP head: the loss is the CE
+    return ce, {"ce": ce, "aux": aux}

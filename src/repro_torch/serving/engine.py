@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -36,6 +36,7 @@ class EngineMetrics:
     # ends in a device-to-host copy of its tokens, which waits for the device
     round_s: List[float] = dataclasses.field(default_factory=list)
     prefill_s: List[float] = dataclasses.field(default_factory=list)
+    ft_units: int = 0          # finetune units run in co-located rounds
 
 
 class ServingEngine:
@@ -95,8 +96,13 @@ class ServingEngine:
         return [r for r in self.slots if r is not None and
                 r.phase == Phase.DECODING]
 
-    def decode_round(self) -> Dict[int, int]:
-        """One decode step over all active slots. Returns {rid: token}."""
+    def decode_round(self, step: Optional[Callable] = None) -> Dict[int, int]:
+        """One decode step over all active slots. Returns {rid: token}.
+
+        step(tokens, positions, cache) -> (logits, cache) replaces the
+        plain `decode_step` (the co-located runner passes its round). The
+        round's time ends with the device-to-host copy of its tokens, which
+        waits for everything the step queued on the stream."""
         active = [(i, r) for i, r in enumerate(self.slots)
                   if r is not None and r.phase == Phase.DECODING]
         if not active:
@@ -106,10 +112,13 @@ class ServingEngine:
         positions = np.zeros((self.max_slots,), np.int32)
         for i, r in active:
             positions[i] = r.context_len  # index of the token being written
-        logits, self.cache = MD.decode_step(
-            self.params, self.cfg, tokens,
-            torch.tensor(positions, device=self.device), self.cache,
-            use_kernels=self.use_kernels)
+        positions = torch.tensor(positions, device=self.device)
+        if step is None:
+            logits, self.cache = MD.decode_step(
+                self.params, self.cfg, tokens, positions, self.cache,
+                use_kernels=self.use_kernels)
+        else:
+            logits, self.cache = step(tokens, positions, self.cache)
         next_tokens = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
         self.metrics.round_s.append(time.perf_counter() - t0)
 
@@ -132,8 +141,11 @@ class ServingEngine:
 
     # ---------------------------------------------------------------- run --
     def run_trace(self, reqs: List[Request], vocab: Optional[int] = None,
-                  max_rounds: int = 10_000) -> EngineMetrics:
-        """Drive the engine to completion in round-order (arrival order)."""
+                  max_rounds: int = 10_000,
+                  round_fn: Optional[Callable[[], object]] = None
+                  ) -> EngineMetrics:
+        """Drive the engine to completion in round-order (arrival order).
+        round_fn, when given, runs each round in place of `decode_round`."""
         vocab = vocab or self.cfg.vocab_size
         pending = sorted(reqs, key=lambda r: r.arrival)
         qi = 0
@@ -149,6 +161,6 @@ class ServingEngine:
                     break
             if not self.active_requests() and qi >= len(pending):
                 break
-            self.decode_round()
+            (round_fn or self.decode_round)()
             rounds += 1
         return self.metrics

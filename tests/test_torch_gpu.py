@@ -1,6 +1,7 @@
-"""Card-only tests of the port: the CUDA paged decode kernel against its
-plain torch version, and a decode step through the kernel against the dense
-oracle. Each skips with a reason where no CUDA device is present. This file
+"""Card-only tests of the port: the CUDA paged decode kernel (K1) and the
+LoRA matmul kernel (K2: forward, the transposed-W dx form, and the autograd
+Function's backward) against their plain torch versions, and a decode step
+through K1 against the dense oracle. Each skips with a reason where no CUDA device is present. This file
 imports no JAX (the machine with the card has none), so run it there with
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -12,6 +13,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import decode_attention as K  # noqa: E402
+from repro_torch.kernels import lora_matmul as K2  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.models import model as MD  # noqa: E402
 
 # B, H, KV, hd, ptok, n_pages, dtype
@@ -83,3 +86,75 @@ def test_decode_step_through_kernel_matches_oracle():
     assert K.LAUNCHES == before + cfg.num_layers
     oracle, _ = MD.decode_step(params, cfg, tok, pos, cache)
     torch.testing.assert_close(with_kernel, oracle, atol=2e-4, rtol=2e-4)
+
+
+# ------------------------------------------------------------------ K2 ----
+# M, K, N, r, dtype, transposed W
+K2_CASES = [
+    (64, 128, 96, 8, torch.float32, False),
+    (128, 512, 256, 16, torch.float32, False),
+    (37, 200, 130, 4, torch.float32, False),       # ragged M/N/K and r
+    (128, 256, 128, 16, torch.bfloat16, False),
+    (37, 200, 130, 4, torch.bfloat16, False),      # ragged, scalar loads
+    (256, 4096, 1024, 16, torch.bfloat16, False),  # k/v projection
+    (300, 1024, 200, 40, torch.bfloat16, False),   # rank 40 -> 64-wide tiles
+    (256, 1024, 4096, 16, torch.bfloat16, True),   # dx form of k/v
+    (37, 200, 130, 4, torch.bfloat16, True),
+    (64, 96, 72, 8, torch.float32, True),
+]
+
+
+def _k2_inputs(M, K, N, r, dtype, trans, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy((rng.normal(size=shape) * 0.1).astype(
+            np.float32)).to(device=device, dtype=dtype)
+    w = t(N, K).t() if trans else t(K, N)
+    return t(M, K), w, t(K, r), t(r, N)
+
+
+def _rel(got, expect):
+    err = (got.float() - expect.float()).abs().max().item()
+    return err / expect.float().square().mean().sqrt().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,r,dtype,trans", K2_CASES)
+def test_k2_kernel_matches_plain(M, K, N, r, dtype, trans):
+    x, w, a, b = _k2_inputs(M, K, N, r, dtype, trans, _card())
+    expect = K2.lora_matmul_plain(x, w, a, b, 2.0)
+    before = K2.LAUNCHES
+    got = K2.lora_matmul(x, w, a, b, 2.0)
+    torch.cuda.synchronize()
+    assert K2.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    # test_kernels.py's tolerances: bf16 rounds the output once, f32 sums
+    # in another order
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(got.float(), expect.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:          # against the unrounded plain output
+        assert _rel(got, K2.lora_matmul_plain(x.float(), w, a, b, 2.0)) \
+            <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_function_backward_matches_autograd_of_plain(dtype):
+    dev = _card()
+    x, w, a, b = _k2_inputs(96, 256, 160, 16, dtype, False, dev, seed=3)
+    dy = _k2_inputs(96, 160, 1, 1, dtype, False, dev, seed=4)[0]
+    grads = {}
+    for name, fn in (("kernel", kops.lora_matmul),
+                     ("plain", K2.lora_matmul_plain)):
+        xs, as_, bs = (t.detach().clone().requires_grad_()
+                       for t in (x, a, b))
+        y = fn(xs, w, as_, bs, 2.0)
+        y.backward(dy)
+        grads[name] = (y, xs.grad, as_.grad, bs.grad)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-4
+    for got, expect in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(got.float(), expect.float(), atol=tol,
+                                   rtol=tol)
+        assert _rel(got, expect) <= (5e-2 if dtype == torch.bfloat16
+                                     else 2e-4)
