@@ -35,6 +35,22 @@ Phases, in order; any failure ends the run with a nonzero exit:
      waves of 16, until the serving has run an iteration's worth of units
      and an OPT) served through `ColocatedRunner(k_max=6,
      use_kernels=True)` and the QoS scheduler, K1 and K2 launches counted.
+Then the llama3 objects are freed and the peak-memory count reset:
+  8. the SSD scan kernel (K3) against its plain torch version on the card
+     at mamba2-780m's prefill shapes (nh 48, hd 64, ds 128, chunk 256; B 1
+     and 2, S 64/71/256/300/512; xs/Bt/Ct bf16 slices of one conv output
+     and dt f32, h0 zeros; a random h0; one all-f32 case), and both against
+     an f64 token-by-token recurrence (the witness), timed beside its bound
+     and the plain version (no single torch call computes the SSD scan, so
+     there is no library yardstick);
+  9. the SSM serving path: `ServingEngine(use_kernels=True)` serves 16
+     requests on full-width mamba2-780m (48 layers, d 1536, random seeded
+     bf16 weights, 8 slots, s_max 1024), every admission's prefill through
+     K3 (48 launches each); then 4 prompts of 300 tokens prefilled with K3,
+     with the plain f32 scan and with the f64 witness as the scan, on the
+     same weights (logits and final state held against the witness's), and
+     a profiler window over 5 decode steps (plain torch: the reference's
+     SSM decode has no kernel).
 The second line from the end lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repository
 around it, the script exits nonzero and prints no result.
@@ -43,6 +59,7 @@ around it, the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import statistics
 import subprocess
@@ -92,6 +109,23 @@ K2_BWD_REL_TOL = 5e-2
 # The max error over RMS is printed beside it.
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_FROB_TOL = 5e-2
+K3_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+K3_REPLACES = "src/repro/kernels/ssd_scan.py:71"
+# K3 vs plain (tests/test_kernels.py's SSD tolerance, atol and rtol): both
+# compute in f32 from the same inputs, in another order of the sums (and
+# the kernel's decay cumsum in double)
+K3_TOL = 2e-3
+# phase 9, a full-width mamba2 prefill of 4 x 300 tokens with K3, held
+# against the same prefill with its scan in float64 (`ssd_f64_witness`).
+# Layer 0's state sees identical inputs on both: K3's tolerance. Deeper,
+# each bf16 rounding that falls the other way is carried through 48
+# layers. On the H100 the plain f32 scan, the reference's own form, reads
+# 0.2109 in the logits and 3.5e-2 in all layers' h from the witness, K3
+# 0.1523 and 2.3e-2 (PERF.md, section 6): the limits admit the plain
+# scan's own distance, with the logits at K1's decode-step limit
+MAMBA_H0_TOL = K3_TOL
+MAMBA_LOGIT_TOL = LOGIT_TOL
+MAMBA_H_TOL = 5e-2
 
 
 def log(*args):
@@ -580,39 +614,304 @@ def phase7_colocated(cfg, params, eng, solo_round_s, seq_len):
     return k1_7, k2_7
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: run it from a checkout of the repository",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
+# ------------------------------------------------------------------ K3 ----
+def k3_bound_ms(B, S, nh, hd, ds, c, item, with_h0):
+    """Least time for the same work. Bytes: xs, Bt, Ct (item bytes), dt, A
+    and h0 (f32) read once, y and hT (f32) written once. Operations, over
+    the f32 peak, for the rows this run has (a ragged chunk counts its L
+    rows): per chunk the causal scores C.B^T once (shared by the heads,
+    ds*L(L+1) flops), and per head the masked decayed form times dt
+    (L(L+1)), its product with x (hd*L(L+1)), the state update (2*L*hd*ds)
+    and, where a state comes in (an h0, or an earlier chunk), the inter
+    term (2*L*hd*ds)."""
+    nbytes = (B * S * (nh * hd + 2 * ds) * item + B * S * nh * 4 + nh * 4
+              + B * S * nh * hd * 4 + B * nh * hd * ds * 4 * (2 if with_h0
+                                                                else 1))
+    flops = 0
+    for k in range(-(-S // c)):
+        L = min(c, S - k * c)
+        tri = L * (L + 1)
+        inter = 2 * L * hd * ds if (with_h0 or k > 0) else 0
+        flops += ds * tri + nh * ((hd + 1) * tri + 2 * L * hd * ds + inter)
+    flops *= B
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k3_inputs(B, S, nh, hd, ds, dtype, h0, seed, dev):
+    """As `ssm_prefill` feeds the scan: xs, Bt and Ct are slices of one
+    (B, S, nh*hd + 2*ds) conv output (strided views) in `dtype`; dt =
+    softplus(N(0, 1)) and A = -linspace(1, 16) (the model's init) in f32;
+    h0 zeros (the engine's fresh slot state) or N(0, 0.2) when h0 is
+    "random"."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    conv = F.silu(randn(B, S, nh * hd + 2 * ds)).to(dtype)
+    xs = conv[..., :nh * hd].reshape(B, S, nh, hd)
+    Bt, Ct = conv[..., nh * hd:nh * hd + ds], conv[..., nh * hd + ds:]
+    dt = F.softplus(randn(B, S, nh))
+    A = -torch.linspace(1.0, 16.0, nh, device=dev)
+    h = randn(B, nh, hd, ds, scale=0.2) if h0 == "random" else \
+        torch.zeros((B, nh, hd, ds), device=dev)
+    return xs, dt, A, Bt, Ct, h
+
+
+def ssd_f64_witness(xs, dt, A, Bt, Ct, chunk, h0=None):
+    """The SSD recurrence token by token in float64, as
+    `repro/kernels/ref.py::ssd_sequential_ref` states it: no cumsum and
+    no chunks (`chunk` is ignored), so neither K3's nor the plain
+    version's order of sums. Returns y and hT in float32."""
+    B, S, nh, hd = xs.shape
+    x, d, b, c = xs.double(), dt.double(), Bt.double(), Ct.double()
+    a = torch.exp(d * A.double())                              # (B, S, nh)
+    h = torch.zeros((B, nh, hd, Bt.shape[-1]), dtype=torch.float64,
+                    device=xs.device) if h0 is None else h0.double()
+    ys = []
+    for t in range(S):
+        h = a[:, t, :, None, None] * h + \
+            (d[:, t, :, None] * x[:, t])[..., None] * b[:, t, None, None, :]
+        ys.append(torch.einsum("bs,bhps->bhp", c[:, t], h))
+    return torch.stack(ys, dim=1).float(), h.float()
+
+
+def check_k3(K3, args, chunk, label):
+    """K3 vs plain on one input, timed; returns the kernels-line numbers."""
+    xs, dt, A, Bt, Ct, h0 = args
+    B, S, nh, hd = xs.shape
+    ds = Bt.shape[-1]
+    y, hT = K3.ssd_scan(xs, dt, A, Bt, Ct, chunk, h0=h0)
+    yr, hr = K3.ssd_scan_plain(xs, dt, A, Bt, Ct, chunk, h0=h0)
+    yw, hw = ssd_f64_witness(xs, dt, A, Bt, Ct, chunk, h0=h0)
+    torch.cuda.synchronize()
+
+    def max_err(got, expect):
+        return (got - expect).abs().max().item()
+    errs, rels, ok = [], [], True
+    for got, expect in ((y, yr), (hT, hr)):
+        err = max_err(got, expect)
+        errs.append(err)
+        rels.append(err / expect.square().mean().sqrt().item())
+        ok = ok and bool(torch.isfinite(got).all()) and torch.allclose(
+            got, expect, atol=K3_TOL, rtol=K3_TOL)
+    # K3 against the f64 witness, at the same tolerance; the plain
+    # version's distance to the witness printed beside it
+    ok = ok and all(torch.allclose(got, w, atol=K3_TOL, rtol=K3_TOL)
+                    for got, w in ((y, yw), (hT, hw)))
+    ms = time_ms(lambda: K3.ssd_scan(xs, dt, A, Bt, Ct, chunk, h0=h0))
+    plain_ms = time_ms(lambda: K3.ssd_scan_plain(xs, dt, A, Bt, Ct, chunk,
+                                                 h0=h0), iters=10)
+    c = min(chunk, S)
+    bound_ms, bound_by = k3_bound_ms(B, S, nh, hd, ds, c, xs.element_size(),
+                                     bool(h0.any()))
+    log(f"K3 {label}: B={B} S={S} nh={nh} hd={hd} ds={ds} c={c} "
+        f"{str(xs.dtype)[6:]} h0={'random' if h0.any() else 'zeros'} "
+        f"max_abs_err y={errs[0]:.3e} hT={errs[1]:.3e} (tol {K3_TOL}) "
+        f"max_err_over_rms y={rels[0]:.3e} hT={rels[1]:.3e}; vs the f64 "
+        f"witness: K3 y={max_err(y, yw):.3e} hT={max_err(hT, hw):.3e}, "
+        f"plain y={max_err(yr, yw):.3e} hT={max_err(hr, hw):.3e}; ok={ok} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none (no single "
+        f"torch call computes the SSD scan) bound_ms={bound_ms:.4f} "
+        f"({bound_by}) bound_share={bound_ms / ms:.3f}")
+    if not ok:
+        raise AssertionError(f"K3 disagrees with its plain version: {label}")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase8_k3(dev, cfg):
+    """K3 against its plain version at `cfg`'s prefill shapes (mamba2-780m:
+    nh 48, hd 64, ds 128, chunk 256), timed. Returns the kernels-line
+    numbers of the largest prefill the serving runs (B 1, S 512, bf16, h0
+    zeros)."""
+    from repro_torch.kernels import ssd_scan as K3
+    # ------------------------------------------- 8. K3 vs plain, on card --
+    nh, hd, ds, chunk = (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
+                         cfg.ssm_chunk)
+    cases = [(B, S, torch.bfloat16, "zeros") for B in (1, 2)
+             for S in (64, 71, 256, 300, 512)]
+    cases += [(1, 300, torch.bfloat16, "random"),
+              (2, 512, torch.bfloat16, "random"),
+              (1, 300, torch.float32, "random")]
+    rows = {}
+    for i, (B, S, dtype, h0) in enumerate(cases):
+        args = k3_inputs(B, S, nh, hd, ds, dtype, h0, seed=31 + i, dev=dev)
+        rows[(B, S, dtype, h0)] = check_k3(K3, args, chunk,
+                                           label=f"case {i}")
+    main = rows[(1, 512, torch.bfloat16, "zeros")]
+    return dict(main, shape=f"B 1 S 512 nh {nh} hd {hd} ds {ds} c {chunk} "
+                "bf16 xs/Bt/Ct, f32 dt, h0 zeros (one layer's prefill)")
+
+
+def phase9_mamba2(dev, cfg):
+    """The new path: `ServingEngine(use_kernels=True)` serves 16 requests
+    on `cfg` (full-width mamba2-780m), every admission's prefill through
+    K3 (48 launches each); then one batch of prompts prefilled with and
+    without K3 on the same weights, and a profiler window over decode
+    steps. Returns K3's launches in the serving run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import decode_attention as K
+    from repro_torch.kernels import ssd_scan as K3
+    from repro_torch.models import model as MD
+    from repro_torch.models import ssm as SSM
+    from repro_torch.serving.engine import EngineMetrics, ServingEngine
+    from repro_torch.serving.request import Request
+    # -------------------------------- 9. serve full-width mamba2 with K3 --
+    t0 = time.perf_counter()
+    params = MD.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = tree_bytes(params)
+    log(f"mamba2-780m: {cfg.num_layers} layers, d {cfg.d_model}, nh "
+        f"{cfg.ssm_nheads}, hd {cfg.ssm_headdim}, ds {cfg.ssm_state}, chunk "
+        f"{cfg.ssm_chunk}; weights {weight_bytes / 1e9:.3f} GB bf16, random "
+        f"(seed 0), init {time.perf_counter() - t0:.2f} s")
+    eng = ServingEngine(cfg, params, max_slots=8, s_max=1024,
+                        use_kernels=True, device=dev)
+    state_bytes = tree_bytes(eng.cache["scan"])
+    eng.run_trace([Request(rid=-1, arrival=0.0, prompt_len=64,
+                           max_new_tokens=2)])       # warm-up, not counted
+    eng.metrics = EngineMetrics()
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, arrival=i * 0.01,
+                    prompt_len=int(rng.integers(64, 513)), max_new_tokens=32)
+            for i in range(16)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K3.LAUNCHES = K3.PLAIN_CALLS = 0
+    K.LAUNCHES = K.PLAIN_CALLS = 0
+    t0 = time.perf_counter()
+    m = eng.run_trace(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = K3.LAUNCHES, K3.PLAIN_CALLS
+    k1_calls = K.LAUNCHES + K.PLAIN_CALLS
+    peak = torch.cuda.max_memory_allocated()
+    log(f"mamba2 serve: {len(reqs)} requests, prompts "
+        f"{[r.prompt_len for r in reqs]}, 32 new tokens each")
+    log(f"mamba2 serve: rounds={m.decode_rounds} tokens_out={m.tokens_out} "
+        f"prefills={m.prefills} wall_s={wall:.3f} "
+        f"tokens_per_s={m.tokens_out / wall:.1f} "
+        f"round_ms_median={1e3 * statistics.median(m.round_s):.3f} "
+        f"round_ms_p90={1e3 * float(np.percentile(m.round_s, 90)):.3f} "
+        f"prefill_ms_median={1e3 * statistics.median(m.prefill_s):.3f} "
+        f"prefill_ms_mean={1e3 * statistics.mean(m.prefill_s):.3f} "
+        f"max_memory_allocated_gb={peak / 1e9:.3f}")
+    # a decode round reads every weight once (the tied embedding table as
+    # the LM head) and reads and writes the 8 slots' state
+    round_bytes = weight_bytes + 2 * state_bytes
+    log(f"mamba2 serve: decode-round bound "
+        f"{round_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms = (weights "
+        f"{weight_bytes / 1e9:.3f} GB, of which the tied embedding/LM head "
+        f"{tree_bytes(params['embed']) / 1e9:.3f} GB, + 2 x state "
+        f"{state_bytes / 1e9:.3f} GB) / 3.35 TB/s")
+    log(f"mamba2 serve: K3 launches={launches} ({cfg.num_layers} x "
+        f"{m.prefills} prefills = {cfg.num_layers * m.prefills}), plain "
+        f"calls={plain_calls}, K1 calls={k1_calls}")
+    if not all(r.phase.value == "done" and r.generated == 32 for r in reqs):
+        raise AssertionError("not every mamba2 request finished")
+    if launches != cfg.num_layers * m.prefills or plain_calls or k1_calls:
+        raise AssertionError("mamba2 prefill did not run through K3")
+
+    # one batch of prompts prefilled with K3, with the plain f32 scan and
+    # with the scan in float64 (the witness: `ssd_chunked`, the plain
+    # path's scan, swapped for `ssd_f64_witness` for that one call), all
+    # on the same weights
+    toks = torch.randint(0, cfg.vocab_size, (4, 300), device=dev,
+                         generator=torch.Generator(dev).manual_seed(5))
+
+    def run(use_kernels, scan=None):
+        cache = MD.init_cache(cfg, 4, 1024, device=dev)
+        plain_scan = SSM.ssd_chunked
+        SSM.ssd_chunked = scan or plain_scan
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = MD.prefill(params, cfg, {"tokens": toks}, cache,
+                                       use_kernels=use_kernels)
+            torch.cuda.synchronize()
+        finally:
+            SSM.ssd_chunked = plain_scan
+        return logits.float(), cache["scan"]["h"], \
+            1e3 * (time.perf_counter() - t0)
+
+    def gap(a, b):
+        """max |dlogit|, greedy agreement, relative error of layer 0's and
+        of every layer's final h (Frobenius), b the reference."""
+        (la, ha, _), (lb, hb, _) = a, b
+        return ((la - lb).abs().max().item(),
+                (la.argmax(-1) == lb.argmax(-1)).float().mean().item(),
+                ((ha[0] - hb[0]).norm() / hb[0].norm()).item(),
+                ((ha - hb).norm() / hb.norm()).item())
+
+    run(True)                                             # warm
+    kern, plain = run(True), run(False)
+    wit = run(False, ssd_f64_witness)
+    lw = wit[0]
+    top2 = lw.topk(2, dim=-1).values
+    margins = [round(v, 4) for v in (top2[:, 0] - top2[:, 1]).tolist()]
+    log(f"mamba2 prefill of 4 x 300 tokens: with K3 {kern[2]:.3f} ms, "
+        f"plain {plain[2]:.3f} ms, f64 witness {wit[2]:.3f} ms; max |logit| "
+        f"{lw.abs().max().item():.3f}, witness top-1 minus top-2 logit "
+        f"{margins}")
+    got = gap(kern, wit)
+    for name, (dl, agree, h0_rel, h_rel) in (
+            ("K3 vs f64 witness", got),
+            ("plain f32 vs f64 witness", gap(plain, wit)),
+            ("K3 vs plain f32", gap(kern, plain))):
+        log(f"mamba2 prefill {name}: max_abs_logit_diff={dl:.4f} "
+            f"greedy_agreement={agree} h_rel_err layer 0={h0_rel:.3e} "
+            f"all layers={h_rel:.3e}")
+    log(f"mamba2 prefill tolerances, K3 vs the witness: logits "
+        f"{MAMBA_LOGIT_TOL}, h of layer 0 {MAMBA_H0_TOL}, h of all layers "
+        f"{MAMBA_H_TOL}")
+    dl, agree, h0_rel, h_rel = got
+    if kern[0].shape != (4, cfg.vocab_size) or \
+            not torch.isfinite(kern[0]).all() or dl > MAMBA_LOGIT_TOL or \
+            h0_rel > MAMBA_H0_TOL or h_rel > MAMBA_H_TOL:
+        raise AssertionError("mamba2 prefill through K3 disagrees with the "
+                             "f64 witness")
+
+    # profiler window over decode steps (plain torch: no kernel of its own)
+    tok = torch.tensor(eng.last_token, device=dev)
+    pos = torch.zeros(8, dtype=torch.int32, device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            MD.decode_step(params, cfg, tok, pos, eng.cache, use_kernels=True)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy_us = sum(r[1] for r in rows)
+    launch_calls = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU and
+                       e.key.startswith(("cudaLaunch", "cuLaunch")))
+    log(f"mamba2 profile: 5 decode steps, wall {window * 1e3:.3f} ms, device "
+        f"busy {busy_us / 1e3:.3f} ms, busy share {busy_us / 1e6 / window:.3f}"
+        f", device events per step {sum(r[2] for r in rows) / 5:.1f}, "
+        f"launch calls per step {launch_calls / 5:.1f}")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"mamba2 profile:   {us / 1e3 / 5:9.4f} ms/step  "
+            f"x{count // 5:<4d} {key[:90]}")
+    return launches
+
+
+
+def phases_llama3(dev):
+    """Phases 2-7 on full-width llama3-8b. Returns the kernels-line numbers
+    of K1 and K2; the model, caches and engine are freed on return."""
     from repro_torch.configs import get_config, smoke_config
-    from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as K
     from repro_torch.models import model as MD
     from repro_torch.serving.engine import EngineMetrics, ServingEngine
     from repro_torch.serving.request import Request
-
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # ---------------------------------------------------- 1. environment --
-    card = card_line()
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    log(f"device {torch.cuda.get_device_name(0)} count "
-        f"{torch.cuda.device_count()}")
-    log(f"nvidia-smi: {card}")
-    t0 = time.perf_counter()
-    libs = build.build_all()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s -> "
-        f"{sorted(str(p.relative_to(ROOT)) for p in libs.values())}")
-    for name, lib in libs.items():
-        report = (lib.parent / f"{name}.log").read_text().strip()
-        log(f"nvcc {name}:\n{report}")
 
     # ------------------------------------------- 2. K1 vs plain, on card --
     for dtype in (torch.bfloat16, torch.float32):
@@ -750,15 +1049,69 @@ def main() -> int:
     train_launches = phase6_train(cfg, params, seq_len=1024)
     k1_7, k2_7 = phase7_colocated(cfg, params, eng, m.round_s, seq_len=1024)
 
+    return dict(k1=dict(launches=launches, **main_k1,
+                        launches_by_path={"serve": launches,
+                                          "colocated_serve": k1_7}),
+                k2=dict(launches=k2_7, **k2_main,
+                        launches_by_path={"train_iteration": train_launches,
+                                          "colocated_serve": k2_7}))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    t_run = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---------------------------------------------------- 1. environment --
+    card = card_line()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"device {torch.cuda.get_device_name(0)} count "
+        f"{torch.cuda.device_count()}")
+    log(f"nvidia-smi: {card}")
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s -> "
+        f"{sorted(str(p.relative_to(ROOT)) for p in libs.values())}")
+    for name, lib in libs.items():
+        report = (lib.parent / f"{name}.log").read_text().strip()
+        log(f"nvcc {name}:\n{report}")
+
+    t_phase = time.perf_counter()
+    llama = phases_llama3(dev)
+    log(f"phases 2-7 took {time.perf_counter() - t_phase:.1f} s")
+    # the mamba2 phases report their own peak memory
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    mamba = get_config("mamba2-780m")
+    k3_main = phase8_k3(dev, mamba)
+    k3 = phase9_mamba2(dev, mamba)
+    log(f"phases 8-9 took {time.perf_counter() - t_phase:.1f} s; whole run "
+        f"{time.perf_counter() - t_run:.1f} s")
+
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": [
         dict(name="decode_attention", route="cuda", source=K1_SOURCE,
-             replaces=K1_REPLACES, launches=launches, **main_k1,
-             launches_by_path={"serve": launches, "colocated_serve": k1_7}),
+             replaces=K1_REPLACES, **llama["k1"]),
         dict(name="lora_matmul", route="cuda", source=K2_SOURCE,
-             replaces=K2_REPLACES, launches=k2_7, **k2_main,
-             launches_by_path={"train_iteration": train_launches,
-                               "colocated_serve": k2_7})]}))
+             replaces=K2_REPLACES, **llama["k2"]),
+        dict(name="ssd_scan", route="cuda", source=K3_SOURCE,
+             replaces=K3_REPLACES, launches=k3, **k3_main,
+             launches_by_path={"serve_mamba2": k3})]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,10 @@ kernel predicates ragged edges itself. Unlike the reference's decode
 adapter (`repro/kernels/ops.py`), `decode_attention` never falls back to
 the dense oracle: a cache whose length 64 does not divide is read as one
 page per slot, and what the kernel cannot compute (windowed or int8
-caches) raises.
+caches) raises. `ssd_scan` is the forward-only SSD scan kernel's wrapper
+itself, with the contract of `models/ssm.py::ssd_chunked`; unlike
+`repro/kernels/ops.py::ssd_scan` it pads no ragged tail (the kernel reads
+those rows as zeros) and has no head-block loop (TPU blocking).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import lora_matmul as _lm
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def decode_attention(q, kc, vc, kv_pos, positions, window: int = 0,
@@ -54,3 +58,8 @@ def lora_matmul(x, w, a, b, scale: float):
     y = _lm.LoRAMatmul.apply(x.reshape(-1, x.shape[-1]).contiguous(), w, a,
                              b, float(scale))
     return y.reshape(*lead, w.shape[1])
+
+
+# K3 as it stands: `ssd_scan.ssd_scan` already keeps `ssd_chunked`'s
+# contract and checks dtypes and strides itself.
+ssd_scan = _ssd.ssd_scan

@@ -14,6 +14,8 @@ given.
       --requests 12 --use-kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --colocate --use-kernels
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+      --smoke --device cpu --use-kernels
 """
 
 from __future__ import annotations

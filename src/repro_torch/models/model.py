@@ -1,15 +1,20 @@
-"""Model assembly: the dense decoder's serving and training paths.
+"""Model assembly: the dense decoder and the SSM family, serving and
+training paths.
 
-Port of the dense half of `repro/models/model.py`. Params are a dict of
-tensors under the JAX pytree's names:
+Port of the dense and SSM halves of `repro/models/model.py`. Params are a
+dict of tensors under the JAX pytree's names:
   {"embed": (V, d), "final_norm": (d,), ["unembed": (V, d)],
    "pre": [], "post": [],
    "scan": {"ln1", "attn": {"wq", "wk", "wv", "wo", ["q_norm", "k_norm"]},
             "ln2", "mlp": {"gate", "up", "down"}}}   # leading axis = layer
+or, for the SSM family (`mamba2-780m`),
+   "scan": {"ln1", "ssm": {"in_proj", "conv_w", "conv_b", "A_log",
+                           "dt_bias", "D", "gate_norm", "out_proj"}},
 and caches mirror it: {"pre": [], "scan": {"k", "v", "kv_pos"}, "post": []}
-with k/v (n_layers, B, S_max, KV, hd), and LoRA adapters mirror it too:
-{"pre": [], "scan": {name: {"a": (n_layers, d_in, r), "b": ...}},
- "post": []} with f32 leaves (`models/lora.py`).
+with k/v (n_layers, B, S_max, KV, hd), or {"h": (n_layers, B, nh, hd, ds)
+f32, "conv": (n_layers, B, w-1, dinner + 2 ds) bf16} for the SSM family.
+LoRA adapters mirror it too: {"pre": [], "scan": {name: {"a": (n_layers,
+d_in, r), "b": ...}}, "post": []} with f32 leaves (`models/lora.py`).
 
 The reference's `jax.lax.scan` over the stacked params becomes a Python loop
 that indexes layer `i` and writes that layer's cache in place: the caller's
@@ -30,6 +35,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import lora as LR
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -38,7 +44,6 @@ Params = Dict[str, Any]
 _UNPORTED = (
     (lambda c: c.mla, "MLA attention", "9.3"),
     (lambda c: c.moe, "MoE layers", "9.2"),
-    (lambda c: c.family == "ssm", "the SSM family", "9.4"),
     (lambda c: c.family == "hybrid", "the hybrid RG-LRU family", "9.5"),
     (lambda c: c.enc_layers or c.cross_attention or
      c.family in ("encdec", "audio"), "the encoder-decoder family", "9.6"),
@@ -60,6 +65,8 @@ def _require_ported(cfg: ModelConfig) -> None:
 def _plan(cfg: ModelConfig):
     """(pre_kinds, scan_kind, n_scan, post_kinds) — how depth is laid out."""
     _require_ported(cfg)
+    if cfg.family == "ssm":
+        return [], "ssm", cfg.num_layers, []
     return [], "attn", cfg.num_layers, []
 
 
@@ -68,7 +75,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, dtype=torch.bfloat16,
                 device=None) -> Params:
     """Random weights at the reference's scales (`model.py:40-133`), from a
     torch generator on the device (not the reference's numbers)."""
-    _, _, n, _ = _plan(cfg)
+    _, scan_kind, n, _ = _plan(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -85,23 +92,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, dtype=torch.bfloat16,
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
 
-    attn = {"wq": normal((n, d, H * hd), d ** -0.5),
-            "wk": normal((n, d, KV * hd), d ** -0.5),
-            "wv": normal((n, d, KV * hd), d ** -0.5),
-            "wo": normal((n, H * hd, d), (H * hd) ** -0.5)}
-    if cfg.qk_norm:
-        attn["q_norm"] = ones(n, hd)
-        attn["k_norm"] = ones(n, hd)
-    p: Params = {
-        "embed": normal((V, d), d ** -0.5),
-        "final_norm": ones(d),
-        "pre": [],
-        "scan": {"ln1": ones(n, d), "attn": attn, "ln2": ones(n, d),
-                 "mlp": {"gate": normal((n, d, ff), d ** -0.5),
-                         "up": normal((n, d, ff), d ** -0.5),
-                         "down": normal((n, ff, d), ff ** -0.5)}},
-        "post": [],
-    }
+    if scan_kind == "ssm":
+        p: Params = {"embed": normal((V, d), d ** -0.5), "final_norm": ones(d),
+                     "pre": [],
+                     "scan": {"ln1": ones(n, d),
+                              "ssm": SSM.ssm_init(gen, cfg, n, dtype=dtype)},
+                     "post": []}
+    else:
+        attn = {"wq": normal((n, d, H * hd), d ** -0.5),
+                "wk": normal((n, d, KV * hd), d ** -0.5),
+                "wv": normal((n, d, KV * hd), d ** -0.5),
+                "wo": normal((n, H * hd, d), (H * hd) ** -0.5)}
+        if cfg.qk_norm:
+            attn["q_norm"] = ones(n, hd)
+            attn["k_norm"] = ones(n, hd)
+        p = {
+            "embed": normal((V, d), d ** -0.5),
+            "final_norm": ones(d),
+            "pre": [],
+            "scan": {"ln1": ones(n, d), "attn": attn, "ln2": ones(n, d),
+                     "mlp": {"gate": normal((n, d, ff), d ** -0.5),
+                             "up": normal((n, d, ff), d ** -0.5),
+                             "down": normal((n, ff, d), ff ** -0.5)}},
+            "post": [],
+        }
     if not cfg.tie_embeddings:
         p["unembed"] = normal((V, d), d ** -0.5)
     return p
@@ -123,8 +137,12 @@ def init_adapters(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
 # ==================================================================== cache
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                dtype=torch.bfloat16, device=None) -> Params:
-    _, _, n, _ = _plan(cfg)
-    one = A.make_cache(cfg, batch, s_max, dtype, resolve_device(device))
+    """Per-layer caches stacked over the layers. The SSM family's state is
+    f32 `h` and bf16 `conv` whatever `dtype` says (`make_ssm_state`)."""
+    _, scan_kind, n, _ = _plan(cfg)
+    dev = resolve_device(device)
+    one = SSM.make_ssm_state(cfg, batch, device=dev) if scan_kind == "ssm" \
+        else A.make_cache(cfg, batch, s_max, dtype, dev)
     return {"pre": [],
             "scan": {k: v[None].repeat_interleave(n, dim=0)
                      for k, v in one.items()},
@@ -143,11 +161,26 @@ def apply_layer(lp: Params, x, positions, cfg: ModelConfig, kind: str, *,
                 mode: str,               # "full" | "prefill" | "decode"
                 cache=None, lora=None, scale: float = 0.0,
                 use_kernels: bool = False):
-    """One dense decoder layer. Returns (x, cache).
+    """One layer of kind "attn" (dense decoder) or "ssm" (Mamba2 mixer).
+    Returns (x, cache); a given cache is updated in place.
 
     lora: pairs form {name: (A, B)} of this layer's adapters. use_kernels
-    routes decode attention through the paged decode kernel and the
-    adapted projections through the LoRA matmul kernel."""
+    routes decode attention through the paged decode kernel, the adapted
+    projections through the LoRA matmul kernel, and the SSM prefill's scan
+    through the SSD scan kernel. The SSM's "full" mode (training) keeps the
+    plain, differentiable scan: the kernel has no backward."""
+    if kind == "ssm":
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if mode == "decode":
+            out, new = SSM.ssm_decode(lp["ssm"], h, cache, cfg)
+        else:
+            out, new = SSM.ssm_prefill(
+                lp["ssm"], h, cfg, state=cache,
+                use_kernel=use_kernels and mode == "prefill")
+        if cache is not None:
+            for name, t in cache.items():
+                t.copy_(new[name])
+        return x + _parallel_lora(h, out, lora, "ssm_io", scale), cache
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
                                   "(ROADMAP.md, modules still to port, item 9)")
@@ -169,6 +202,14 @@ def apply_layer(lp: Params, x, positions, cfg: ModelConfig, kind: str, *,
     return x, cache
 
 
+def _parallel_lora(h, out, lora, name: str, scale: float):
+    """Parallel low-rank adapter on a mixer block's I/O path."""
+    if lora and name in lora:
+        a, b = lora[name]
+        out = out + scale * ((h @ a.to(h.dtype)) @ b.to(h.dtype))
+    return out
+
+
 # ================================================================= drivers
 def _head(params, cfg: ModelConfig, x):
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -176,16 +217,20 @@ def _head(params, cfg: ModelConfig, x):
     return L.lm_logits(x, table)[:, 0]
 
 
-def prefill(params, cfg: ModelConfig, batch: Dict, cache):
+def prefill(params, cfg: ModelConfig, batch: Dict, cache, *,
+            use_kernels: bool = False):
     """Prompt processing: forward + cache fill. batch: {"tokens": (B, S),
     optional "positions": (B, S)}. Returns (last_logits (B, V), cache).
-    Prefill attention is plain torch (the reference's is jnp, no kernel)."""
+    use_kernels routes the SSM family's scan through the SSD scan kernel
+    (`kernels/ops.ssd_scan`); prefill attention is plain torch either way
+    (the reference's is jnp, no kernel)."""
     _, scan_kind, n, _ = _plan(cfg)
     x, positions, _ = _embed_inputs(params, cfg, batch)
     for i in range(n):
         x, _ = apply_layer(_layer(params["scan"], i), x, positions, cfg,
                            scan_kind, mode="prefill",
-                           cache=_layer(cache["scan"], i))
+                           cache=_layer(cache["scan"], i),
+                           use_kernels=use_kernels)
     return _head(params, cfg, x[:, -1:]), cache
 
 
@@ -193,7 +238,8 @@ def decode_step(params, cfg: ModelConfig, tokens, positions, cache, *,
                 use_kernels: bool = False):
     """One decode token. tokens/positions: (B,). Returns (logits (B, V),
     cache). use_kernels routes decode attention through the CUDA kernel
-    (`kernels/ops.decode_attention`)."""
+    (`kernels/ops.decode_attention`); the SSM family's decode is plain
+    torch either way (the reference's is jnp, no kernel)."""
     _, scan_kind, n, _ = _plan(cfg)
     x = L.embed(tokens.long()[:, None], params["embed"])     # (B, 1, d)
     for i in range(n):

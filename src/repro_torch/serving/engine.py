@@ -7,6 +7,9 @@ over a fixed slot array. Admission, slot insert, `decode_round` and
 `run_trace` keep the reference's semantics, and prompt tokens come from the
 same `np.random.default_rng(seed)`, so a seeded trace is the same on both
 sides. Greedy argmax is taken on the device, with one host copy per round.
+`use_kernels` reaches prefill as well as decode (the reference engine
+passes it to decode only), so an SSM model's admissions run the SSD scan
+kernel. The slot insert copies every per-layer cache leaf, KV or SSM state.
 """
 
 from __future__ import annotations
@@ -76,7 +79,8 @@ class ServingEngine:
                                            device=self.device)}
         one_cache = MD.init_cache(self.cfg, 1, self.s_max, device=self.device)
         logits, one_cache = MD.prefill(self.params, self.cfg, batch,
-                                       one_cache)
+                                       one_cache,
+                                       use_kernels=self.use_kernels)
         self._insert_slot_cache(slot, one_cache)
         tok = int(torch.argmax(logits[0]))
         self.metrics.prefill_s.append(time.perf_counter() - t0)

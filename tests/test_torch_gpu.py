@@ -1,7 +1,9 @@
-"""Card-only tests of the port: the CUDA paged decode kernel (K1) and the
+"""Card-only tests of the port: the CUDA paged decode kernel (K1), the
 LoRA matmul kernel (K2: forward, the transposed-W dx form, and the autograd
-Function's backward) against their plain torch versions, and a decode step
-through K1 against the dense oracle. Each skips with a reason where no CUDA device is present. This file
+Function's backward) and the SSD scan kernel (K3: ragged chunks, an initial
+state, bf16 inputs read through the strides of the conv output) against
+their plain torch versions, a decode step through K1 against the dense
+oracle, and an SSM prefill through K3 against the plain scan. Each skips with a reason where no CUDA device is present. This file
 imports no JAX (the machine with the card has none), so run it there with
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -15,6 +17,7 @@ from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import decode_attention as K  # noqa: E402
 from repro_torch.kernels import lora_matmul as K2  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import ssd_scan as K3  # noqa: E402
 from repro_torch.models import model as MD  # noqa: E402
 
 # B, H, KV, hd, ptok, n_pages, dtype
@@ -158,3 +161,77 @@ def test_k2_function_backward_matches_autograd_of_plain(dtype):
                                    rtol=tol)
         assert _rel(got, expect) <= (5e-2 if dtype == torch.bfloat16
                                      else 2e-4)
+
+
+# ------------------------------------------------------------------ K3 ----
+# B, S, nh, hd, ds, chunk, h0, dtype
+K3_CASES = [
+    (2, 32, 8, 16, 32, 8, False, torch.float32),     # test_kernels.py shapes
+    (1, 50, 4, 8, 16, 16, False, torch.float32),     # ragged tail chunk
+    (2, 64, 16, 32, 64, 32, True, torch.float32),
+    (2, 71, 4, 16, 16, 256, True, torch.float32),    # c = S = 71
+    (1, 300, 3, 64, 128, 256, True, torch.bfloat16),  # mamba2 head, 2 chunks
+    (2, 200, 2, 40, 100, 130, False, torch.bfloat16),  # hd/ds below the tile
+    (1, 129, 2, 64, 128, 129, True, torch.float32),  # 3 row tiles, 1 ragged
+]
+
+
+def _k3_inputs(B, S, nh, hd, ds, h0, dtype, device, seed=0):
+    """As `ssm_prefill` feeds the scan: xs, Bt and Ct are slices of one
+    (B, S, nh*hd + 2*ds) buffer (strided views), dt and A f32."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(device)
+    conv = t(B, S, nh * hd + 2 * ds, scale=0.5).to(dtype)
+    xs = conv[..., :nh * hd].reshape(B, S, nh, hd)
+    Bt, Ct = conv[..., nh * hd:nh * hd + ds], conv[..., nh * hd + ds:]
+    dt = torch.nn.functional.softplus(t(B, S, nh))
+    A = -torch.exp(t(nh, scale=0.3))
+    return xs, dt, A, Bt, Ct, (t(B, nh, hd, ds, scale=0.2) if h0 else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,h0,dtype", K3_CASES)
+def test_k3_kernel_matches_plain(B, S, nh, hd, ds, chunk, h0, dtype):
+    xs, dt, A, Bt, Ct, h = _k3_inputs(B, S, nh, hd, ds, h0, dtype, _card())
+    assert not xs.is_contiguous()
+    before = K3.LAUNCHES
+    y, hT = K3.ssd_scan(xs, dt, A, Bt, Ct, chunk, h0=h)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES == before + 1
+    yr, hr = K3.ssd_scan_plain(xs, dt, A, Bt, Ct, chunk, h0=h)
+    assert y.dtype == hT.dtype == torch.float32
+    # test_kernels.py's 2e-3: another order of the same f32 sums
+    torch.testing.assert_close(y, yr, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(hT, hr, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.gpu
+def test_k3_refuses_a_gradient_on_the_card():
+    xs, dt, A, Bt, Ct, _ = _k3_inputs(1, 16, 2, 8, 16, False, torch.float32,
+                                      _card())
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kops.ssd_scan(xs.requires_grad_(), dt, A, Bt, Ct, 8)
+
+
+@pytest.mark.gpu
+def test_ssm_prefill_through_k3_matches_plain():
+    dev = _card()
+    cfg = smoke_config("mamba2-780m")
+    params = MD.init_params(cfg, 0, dtype=torch.float32, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 37), device=dev,
+                         generator=torch.Generator(dev).manual_seed(2))
+    out = {}
+    for use_kernels in (False, True):
+        cache = MD.init_cache(cfg, 2, 64, device=dev)
+        before = K3.LAUNCHES
+        logits, cache = MD.prefill(params, cfg, {"tokens": toks}, cache,
+                                   use_kernels=use_kernels)
+        assert K3.LAUNCHES - before == (cfg.num_layers if use_kernels else 0)
+        out[use_kernels] = (logits, cache["scan"]["h"])
+    torch.testing.assert_close(out[True][0], out[False][0], atol=2e-3,
+                               rtol=2e-3)
+    torch.testing.assert_close(out[True][1], out[False][1], atol=2e-3,
+                               rtol=2e-3)

@@ -68,7 +68,7 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b",
-                                  "mamba2-780m", "recurrentgemma-2b",
+                                  "recurrentgemma-2b",
                                   "seamless-m4t-large-v2",
                                   "phi-3-vision-4.2b", "h2o-danube-1.8b"])
 def test_unported_families_raise(arch):

@@ -1,7 +1,9 @@
 """PyTorch port vs JAX reference, whole model: prefill logits and cache
 contents, then 8 greedy decode steps (same tokens, logits within 2e-4) with
-the port's decode kernel path on and off, on the smoke configs of the
-paper's two models. f32 weights carried over from the JAX init by interop."""
+the port's kernel paths on and off, on the smoke configs of the paper's two
+models and of mamba2-780m (whose cache is the SSM state; its prefill runs
+the SSD scan's wrapper with the kernels on, its decode has no kernel). f32
+weights carried over from the JAX init by interop."""
 
 import pytest
 
@@ -16,6 +18,7 @@ from repro.models import model as JMD  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.interop import to_numpy, to_torch  # noqa: E402
 from repro_torch.kernels import decode_attention as K  # noqa: E402
+from repro_torch.kernels import ssd_scan as K3  # noqa: E402
 from repro_torch.models import model as TMD  # noqa: E402
 
 TOL = 2e-4
@@ -27,30 +30,34 @@ def _close(t, j):
                                np.asarray(j, np.float32), atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2.5-7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2.5-7b", "mamba2-780m"])
 def test_prefill_and_greedy_decode_match_reference(arch):
     jcfg, tcfg = jconfigs.smoke_config(arch), tconfigs.smoke_config(arch)
     params_j = JMD.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
     params_t = to_torch(params_j)
     tokens = np.random.default_rng(0).integers(
         0, jcfg.vocab_size, size=(B, S)).astype(np.int32)
+    ssm = jcfg.family == "ssm"
 
     cache_j = JMD.init_cache(jcfg, B, S_MAX, dtype=jnp.float32)
     logits_j, cache_j = jax.jit(lambda p, b, c: JMD.prefill(p, jcfg, b, c))(
         params_j, {"tokens": jnp.asarray(tokens)}, cache_j)
-    cache_t = TMD.init_cache(tcfg, B, S_MAX, dtype=torch.float32, device="cpu")
-    logits_t, cache_t = TMD.prefill(params_t, tcfg,
-                                    {"tokens": torch.from_numpy(tokens)},
-                                    cache_t)
-    _close(logits_t, logits_j)
-    for name in ("k", "v", "kv_pos"):
-        _close(cache_t["scan"][name], cache_j["scan"][name])
+    caches_t = {}
+    for use_kernels in (False, True):
+        cache_t = TMD.init_cache(tcfg, B, S_MAX, dtype=torch.float32,
+                                 device="cpu")
+        before = K3.PLAIN_CALLS
+        logits_t, caches_t[use_kernels] = TMD.prefill(
+            params_t, tcfg, {"tokens": torch.from_numpy(tokens)}, cache_t,
+            use_kernels=use_kernels)
+        assert K3.PLAIN_CALLS - before == \
+            (tcfg.num_layers if use_kernels and ssm else 0)
+        _close(logits_t, logits_j)
+        assert cache_t["scan"].keys() == cache_j["scan"].keys()
+        for name, t in cache_t["scan"].items():
+            _close(t, cache_j["scan"][name])
 
     decode_j = jax.jit(lambda p, t, q, c: JMD.decode_step(p, jcfg, t, q, c))
-    caches_t = {False: cache_t,
-                True: {"pre": [], "post": [],
-                       "scan": {k: v.clone()
-                                for k, v in cache_t["scan"].items()}}}
     tok = np.array(jnp.argmax(logits_j, axis=-1), np.int32)
     for step in range(STEPS):
         pos = np.full((B,), S + step, np.int32)
@@ -63,11 +70,11 @@ def test_prefill_and_greedy_decode_match_reference(arch):
                 params_t, tcfg, torch.from_numpy(tok), torch.from_numpy(pos),
                 cache, use_kernels=use_kernels)
             assert K.PLAIN_CALLS - before == \
-                (tcfg.num_layers if use_kernels else 0)
+                (tcfg.num_layers if use_kernels and not ssm else 0)
             _close(logits_t, logits_j)
             np.testing.assert_array_equal(
                 logits_t.argmax(dim=-1).numpy(), next_j)
         tok = next_j
     for cache in caches_t.values():
-        for name in ("k", "v", "kv_pos"):
-            _close(cache["scan"][name], cache_j["scan"][name])
+        for name, t in cache["scan"].items():
+            _close(t, cache_j["scan"][name])

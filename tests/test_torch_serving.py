@@ -24,6 +24,7 @@ from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
 from repro.serving.request import Request as JRequest  # noqa: E402
 from repro_torch.interop import to_numpy, to_torch  # noqa: E402
 from repro_torch.kernels import decode_attention as K  # noqa: E402
+from repro_torch.kernels import ssd_scan as K3  # noqa: E402
 from repro_torch.models import model as TMD  # noqa: E402
 from repro_torch.models.config import ModelConfig as TConfig  # noqa: E402
 from repro_torch.serving import kv_cache as TKV  # noqa: E402
@@ -32,11 +33,21 @@ from repro_torch.serving.request import Request as TRequest  # noqa: E402
 
 TINY = dict(name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
             num_kv_heads=2, d_ff=96, vocab_size=256)
+# the SSM family at the same width: mamba2's mixer, state 16, chunk 8
+TINY_SSM = dict(name="t", family="ssm", num_layers=2, d_model=64,
+                num_heads=4, num_kv_heads=4, d_ff=0, vocab_size=256,
+                ssm_state=16, ssm_headdim=16, ssm_chunk=8)
 
 
 @pytest.fixture(scope="module")
 def tiny():
     params_j = JMD.init_params(JConfig(**TINY), jax.random.PRNGKey(0))
+    return params_j, to_torch(params_j)
+
+
+@pytest.fixture(scope="module")
+def tiny_ssm():
+    params_j = JMD.init_params(JConfig(**TINY_SSM), jax.random.PRNGKey(0))
     return params_j, to_torch(params_j)
 
 
@@ -106,18 +117,30 @@ def _drive(eng, reqs):
             toks[rid].append(t)
 
 
+@pytest.mark.parametrize("family", ["dense", "ssm"])
 @pytest.mark.parametrize("use_kernels", [False, True])
-def test_engine_greedy_tokens_match_reference(tiny, use_kernels):
-    """bf16 weights and cache, as served; same seed on both sides."""
-    expect = _drive(_JEngineSlotFixed(JConfig(**TINY), tiny[0], max_slots=4,
+def test_engine_greedy_tokens_match_reference(request, family, use_kernels):
+    """bf16 weights and cache, as served; same seed on both sides. With
+    use_kernels the port's dense decode runs K1's wrapper and the SSM
+    prefill K3's (the reference engine's prefill takes no kernels, and its
+    SSM decode has none); an SSM model has no KV, yet the page accounting
+    admits and releases every request."""
+    cfg = TINY if family == "dense" else TINY_SSM
+    params_j, params_t = request.getfixturevalue(
+        "tiny" if family == "dense" else "tiny_ssm")
+    expect = _drive(_JEngineSlotFixed(JConfig(**cfg), params_j, max_slots=4,
                                       s_max=64, use_kernels=use_kernels),
                     _trace(JRequest))
-    before = K.PLAIN_CALLS
-    got = _drive(TEngine(TConfig(**TINY), tiny[1], max_slots=4, s_max=64,
-                         use_kernels=use_kernels, device="cpu"),
-                 _trace(TRequest))
+    before, before3 = K.PLAIN_CALLS, K3.PLAIN_CALLS
+    eng = TEngine(TConfig(**cfg), params_t, max_slots=4, s_max=64,
+                  use_kernels=use_kernels, device="cpu")
+    got = _drive(eng, _trace(TRequest))
     assert got == expect
-    assert (K.PLAIN_CALLS > before) == use_kernels
+    assert (K.PLAIN_CALLS > before) == (use_kernels and family == "dense")
+    assert K3.PLAIN_CALLS - before3 == \
+        (cfg["num_layers"] * eng.metrics.prefills
+         if use_kernels and family == "ssm" else 0)
+    assert eng.metrics.prefills == 6 and eng.pages.pages_in_use == 0
 
 
 def test_page_table_manager_matches_reference():

@@ -23,6 +23,7 @@ from repro.training import peft as JP  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.interop import to_numpy, to_torch  # noqa: E402
 from repro_torch.kernels import lora_matmul as K2  # noqa: E402
+from repro_torch.kernels import ssd_scan as K3  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import lora as TLR  # noqa: E402
 from repro_torch.models import model as TMD  # noqa: E402
@@ -306,6 +307,52 @@ def test_unit_engine_matches_reference_units(jax_units, use_kernels):
     back = to_numpy(state)
     assert jax.tree.structure(back) == jax.tree.structure(state1_j)
     assert back["unit_idx"].dtype == np.int32
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_unit_engine_ssm_family_matches_reference(use_kernels):
+    """The unit engine runs a whole iteration of an SSM stack (the SSM
+    config of test_peft.py::test_unit_engine_families) from the JAX units'
+    ft_state (B drawn, so every adapter leaf gets a gradient): the
+    microbatch's loss and accumulated grads agree with the JAX units' at
+    the dense test's 1e-2 and 8e-2 (bf16 noise; measured 1.2e-2), then
+    OPT brings iter to 1 with last_loss finite and equal to that loss.
+    Training keeps the plain, differentiable scan with the kernels on (K3
+    has no backward): no K3 or K2 call."""
+    kw = dict(family="ssm", d_ff=0, ssm_state=16, ssm_headdim=16,
+              ssm_chunk=4, num_kv_heads=4)
+    jcfg, tcfg = _cfgs(**kw)
+    params = JMD.init_params(jcfg, jax.random.PRNGKey(0))
+    staged = jdata.Prefetcher(jdata.SyntheticCorpus(jdata.DataConfig(
+        jcfg.vocab_size, 12, 2, seed=3)).batches(), 2).stacked()
+    pc_j = JP.PeftConfig(micro_batch=2, seq_len=12, accum=1,
+                         opt=jopt.AdamWConfig(lr=1e-3))
+    state0 = JP.init_ft_state(jcfg, pc_j, params, jax.random.PRNGKey(1),
+                              staged)
+    state0["adapters"] = _nonzero_b(state0["adapters"], 11)
+    state0 = jax.tree.map(np.asarray, state0)
+    unit_j = jax.jit(JP.make_unit_step(jcfg, pc_j, params))
+    state_j = state0
+    for _ in range(JP.n_units_per_mb(jcfg)):
+        state_j = unit_j(state_j)
+
+    pc = TP.PeftConfig(micro_batch=2, seq_len=12, accum=1,
+                       opt=topt.AdamWConfig(lr=1e-3))
+    before = (K2.PLAIN_CALLS, K3.PLAIN_CALLS)
+    unit = TP.make_unit_step(tcfg, pc, to_torch(params),
+                             use_kernels=use_kernels)
+    state = TP.run_units(unit, to_torch(state0), TP.n_units_per_mb(tcfg))
+    assert (K2.PLAIN_CALLS, K3.PLAIN_CALLS) == before
+    loss = float(state["loss"])
+    assert loss == pytest.approx(float(state_j["loss"]), rel=1e-2)
+    assert state["adapters"]["scan"].keys() == {"ssm_io"}
+    for got, expect in zip(tree_leaves(state["grads"]),
+                           jax.tree.leaves(state_j["grads"])):
+        assert _frob_err(_f32(got), expect) <= 8e-2
+    state = unit(state)                                     # OPT
+    assert state["iter"] == 1 and state["unit_idx"] == 0
+    assert np.isfinite(float(state["last_loss"]))
+    assert float(state["last_loss"]) == loss
 
 
 def test_ft_state_round_trip_is_exact(jax_units):
