@@ -6,30 +6,37 @@
 Phases, in order; any failure ends the run with a nonzero exit:
   1. environment: torch, the card, its power limit; build the CUDA kernels
      from `src/repro_torch/kernels/csrc` and print the build time;
-  2. the paged decode kernel (K1) against its plain torch version on the
-     card at serving shapes (llama3-8b and qwen2.5-7b heads, bf16 and f32,
-     B in {1, 8}, 16 pages of 64 tokens), timed beside its HBM bound, the
-     plain version and one SDPA call over the same cache (a yardstick the
-     port never calls);
+  2. the paged decode kernel (K1, split-KV) against its plain torch version
+     on the card at serving shapes (llama3-8b and qwen2.5-7b heads, bf16
+     and f32, B in {1, 8}, 16 pages of 64 tokens; and B 1 with all 16 pages
+     full, the long context where splitting matters most), timed beside its
+     HBM bound, the plain version and one SDPA call over the same cache (a
+     yardstick the port never calls); at the long context, K1 at split
+     lengths of 32-1024 positions (the scan behind its split length);
   3. the main path: `ServingEngine(use_kernels=True)` serves 16 requests on
      full-width llama3-8b (random seeded bf16 weights, 8 slots, s_max 1024),
      with the kernel's launch count read just before and after; then one
      decode step with and without the kernel on the same cache, and K1 timed
-     on that cache;
+     on that cache, also at split lengths of 32-1024;
   4. a profiler window over decode steps: device time by kernel, the
      device's busy share, and the host's CUDA launch/copy/sync calls;
-  5. the LoRA matmul kernel (K2) against its plain torch version on the card
-     at the training path's shapes (M 2048: gate 4096->14336, k/v
-     4096->1024, down 14336->4096, bf16; the transposed-W dx form of gate
-     and down; ragged 37x200x130 and 128x256x128 in f32), timed beside its
+  5. the LoRA matmul kernels (K2) against their plain torch version on the
+     card at the training path's shapes (M 2048: gate 4096->14336, k/v
+     4096->1024, q/o 4096->4096, down 14336->4096, bf16; the transposed-W dx
+     form of gate and down; q/o in both forms at scales 0.75, 1/3 and 0),
+     each asserted by its counter to run on the wgmma kernel; a ragged
+     37x200x130 bf16 case on the WMMA kernel; ragged
+     37x200x130 and 128x256x128 in f32 on the FMA kernel; timed beside the
      bound, the plain version and a torch.matmul yardstick the port never
      calls; and the autograd Function's backward against autograd of the
      plain version;
   6. training at full width: one PEFT iteration of llama3-8b (the weights
      of phase 3, micro-batch 2 x 1024 tokens, accum 1) through the layer
-     units with K2, its launches counted (32 x 7 + 32 x 14 = 672), then the
-     next microbatch's units with and without K2 from that state, loss and
-     grads held against each other;
+     units with K2, its launches counted (32 x 7 + 32 x 14 = 672, all on the
+     wgmma kernel), then the next microbatch's units with and without K2
+     from that state, loss and grads held against each other, and the
+     ratio of their times printed; then a profiler window over BWD units
+     on both routes: their wall time beside the device's busy time;
   7. co-located serving: rounds with k = 0 and k > 0 units profiled, the
      latency predictor fit from them, and phase 3's 16 requests (then more
      waves of 16, until the serving has run an iteration's worth of units
@@ -161,6 +168,15 @@ def time_ms(fn, iters: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+def device_rows(prof):
+    """(name, device us, count) of a profiler window's device-side events
+    (a host op's row repeats its kernels' time, so those are left out)."""
+    from torch.autograd import DeviceType
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+
+
 def k1_bound_ms(q, k_pages, page_table, lengths):
     """Least time for the same work: each input byte read once (q, the K/V
     rows that are valid in this run's data, table, lengths), the output
@@ -226,6 +242,32 @@ def check_k1(K, q, kp, vp, pt, lengths, label):
                 bound_by=bound_by, library_ms=library_ms)
 
 
+def k1_split_scan(K, args, label):
+    """K1 on one input at split lengths of 32 (one tile) to 1024 (one split
+    of the whole table), each held against the plain version and timed: the
+    scan behind `SPLIT_TOKENS`, which is set for the scan and restored."""
+    chosen = K.SPLIT_TOKENS
+    expect = K.paged_decode_attention_plain(*args).float()
+    tol, rel_tol = K1_TOL[args[0].dtype], K1_REL_TOL[args[0].dtype]
+    times = {}
+    try:
+        for split in (32, 64, 128, 256, 1024):
+            K.SPLIT_TOKENS = split
+            got = K.paged_decode_attention(*args).float()
+            rel = (got - expect).abs().max().item() / \
+                expect.square().mean().sqrt().item()
+            if not torch.allclose(got, expect, atol=tol, rtol=tol) or \
+                    rel > rel_tol:
+                raise AssertionError(f"K1 disagrees with its plain version "
+                                     f"at split length {split}: {label}")
+            times[split] = time_ms(lambda: K.paged_decode_attention(*args))
+    finally:
+        K.SPLIT_TOKENS = chosen
+    log(f"K1 split scan, {label}: ms by split length "
+        f"{ {k: round(v, 4) for k, v in times.items()} } (SPLIT_TOKENS "
+        f"{chosen}), each within tolerance of the plain version")
+
+
 def tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(tree_bytes(v) for v in tree.values())
@@ -234,7 +276,10 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def k1_inputs(B, H, KV, hd, ptok, npg, dtype, seed):
+def k1_inputs(B, H, KV, hd, ptok, npg, dtype, seed, full=False):
+    """Random q, pages and a permuted page table; a skipped page and random
+    lengths (the last sequence of 1 token), or with `full` every page real
+    and every sequence at the table's length."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     P = B * npg + 2
 
@@ -243,6 +288,9 @@ def k1_inputs(B, H, KV, hd, ptok, npg, dtype, seed):
     q, kp, vp = randn(B, H, hd), randn(P, ptok, KV, hd), randn(P, ptok, KV, hd)
     pt = torch.randperm(P, generator=g, device="cuda")[:B * npg]
     pt = pt.reshape(B, npg).to(torch.int32)
+    if full:
+        return q, kp, vp, pt, torch.full((B,), npg * ptok, dtype=torch.int32,
+                                         device="cuda")
     pt[0, -1] = -1                                  # a skipped page
     lengths = torch.randint(1, npg * ptok + 1, (B,), generator=g,
                             device="cuda").to(torch.int32)
@@ -276,11 +324,19 @@ def k2_inputs(M, K, N, r, dtype, trans, seed):
     return x, w, randn(K, r, scale=K ** -0.5), randn(r, N, scale=0.05)
 
 
-def check_k2(K2, x, w, a, b, scale, label):
-    """K2 vs plain on one input, timed; returns the kernels-line numbers."""
+K2_COUNTERS = ("LAUNCHES_WGMMA", "LAUNCHES_WMMA", "LAUNCHES_F32")
+
+
+def check_k2(K2, x, w, a, b, scale, label, kernel):
+    """K2 vs plain on one input, timed; asserts by the counters that the
+    call ran on `kernel` ("wgmma", "wmma" or "f32"); returns the
+    kernels-line numbers."""
     M, K = x.shape
     N, r = w.shape[1], a.shape[1]
+    before = [getattr(K2, c) for c in K2_COUNTERS]
     got = K2.lora_matmul(x, w, a, b, scale)
+    ran = [getattr(K2, c) - n for c, n in zip(K2_COUNTERS, before)]
+    expect_ran = [int(c == f"LAUNCHES_{kernel.upper()}") for c in K2_COUNTERS]
     expect = K2.lora_matmul_plain(x, w, a, b, scale)
     unrounded = K2.lora_matmul_plain(x.float(), w, a, b, scale)
     torch.cuda.synchronize()
@@ -296,13 +352,17 @@ def check_k2(K2, x, w, a, b, scale, label):
     library_ms = time_ms(lambda: x @ w + scale * ((x @ a) @ b))
     bound_ms, bound_by = k2_bound_ms(M, K, N, r, x.dtype)
     log(f"K2 {label}: M={M} K={K} N={N} r={r} {str(x.dtype)[6:]} "
-        f"w_trans={int(not w.is_contiguous())} max_abs_err={err:.3e} "
+        f"w_trans={int(not w.is_contiguous())} kernel="
+        f"{K2._k2_path(M, N, K, r, x.dtype)} (launches wgmma/wmma/f32 "
+        f"{ran}, expected {kernel}) max_abs_err={err:.3e} "
         f"(tol {tol}) max_err_over_rms={rel:.3e} (vs the unrounded plain "
         f"output; tol {rel_tol}) ok={ok} "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}) "
         f"bound_share={bound_ms / ms:.3f} "
         f"tflops={2 * M * K * N / ms / 1e9:.1f}")
+    if ran != expect_ran:
+        raise AssertionError(f"K2 {label} did not run on the {kernel} kernel")
     if not ok:
         raise AssertionError(f"K2 disagrees with its plain version: {label}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -389,18 +449,30 @@ def phase5_k2(cfg):
     r = cfg.lora.rank
     scale = cfg.lora.alpha / cfg.lora.rank
     M = 2 * 1024                                # micro-batch 2 x seq 1024
-    k2_cases = [("gate/up", M, d, ff, torch.bfloat16, False),
-                ("k/v", M, d, kv, torch.bfloat16, False),
-                ("down", M, ff, d, torch.bfloat16, False),
-                ("dx of gate/up", M, ff, d, torch.bfloat16, True),
-                ("dx of down", M, d, ff, torch.bfloat16, True),
-                ("ragged", 37, 200, 130, torch.float32, False),
-                ("small", 128, 256, 128, torch.float32, False)]
+    k2_cases = [("gate/up", M, d, ff, torch.bfloat16, False, "wgmma"),
+                ("k/v", M, d, kv, torch.bfloat16, False, "wgmma"),
+                ("down", M, ff, d, torch.bfloat16, False, "wgmma"),
+                ("dx of gate/up", M, ff, d, torch.bfloat16, True, "wgmma"),
+                ("dx of down", M, d, ff, torch.bfloat16, True, "wgmma"),
+                ("ragged", 37, 200, 130, torch.float32, False, "f32"),
+                ("small", 128, 256, 128, torch.float32, False, "f32"),
+                ("q/o", M, d, d, torch.bfloat16, False, "wgmma"),
+                ("ragged bf16", 37, 200, 130, torch.bfloat16, False, "wmma")]
     k2_rows = {}
-    for i, (label, m_, k_, n_, dtype, trans) in enumerate(k2_cases):
+    for i, (label, m_, k_, n_, dtype, trans, kernel) in enumerate(k2_cases):
         x, w, a, b = k2_inputs(m_, k_, n_, r if m_ == M else 4, dtype,
                                trans, seed=11 + i)
-        k2_rows[label] = check_k2(K2, x, w, a, b, scale, label)
+        k2_rows[label] = check_k2(K2, x, w, a, b, scale, label, kernel)
+    # the wgmma epilogue's acc = (acc / s + xa @ B) * s is exact at the
+    # training path's s = 2; at a scale that is not a power of two each
+    # scaling rounds once in f32, and s = 0 skips xa @ B: both W forms, the
+    # same tolerances
+    for i, s_ in enumerate((0.75, 1 / 3, 0.0)):
+        for trans in (False, True):
+            x, w, a, b = k2_inputs(M, d, d, r, torch.bfloat16, trans,
+                                   seed=31 + 2 * i + trans)
+            check_k2(K2, x, w, a, b, s_, f"q/o, s={s_:.4g}, "
+                     f"{'dx form (W^T)' if trans else 'W'}", "wgmma")
     check_k2_backward(K2, kops, M, d, kv, r)
     return dict(k2_rows["gate/up"], shape=f"M {M} K {d} N {ff} r {r} bf16 "
                 "(gate/up forward)")
@@ -409,8 +481,9 @@ def phase5_k2(cfg):
 def phase6_train(cfg, params, seq_len):
     """One PEFT iteration through the layer units with K2, its launches
     counted; then the next microbatch's units from that state (B no longer
-    0) with K2, timed warm, and without K2, loss and grads compared.
-    Returns K2's launches in the iteration."""
+    0) with K2 and without it, each timed synchronized per unit and as one
+    stream, loss and grads compared. Returns K2's launches in the
+    iteration."""
     from repro_torch.kernels import lora_matmul as K2
     from repro_torch.training import peft as P
     from repro_torch.training.data import (DataConfig, Prefetcher,
@@ -425,25 +498,26 @@ def phase6_train(cfg, params, seq_len):
     upm = P.n_units_per_mb(cfg)
     unit = P.make_unit_step(cfg, pc, params, use_kernels=True)
 
-    def timed_units(state, n):
+    def timed_units(step, state, n):
         """n units, synchronized after each: (state, {kind: [s]})."""
         times = {}
         for _ in range(n):
             kind = unit_kind(P, cfg, pc, state["unit_idx"])
             t0 = time.perf_counter()
-            state = unit(state)
+            state = step(state)
             torch.cuda.synchronize()
             times.setdefault(kind, []).append(time.perf_counter() - t0)
         return state, times
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K2.LAUNCHES = 0
+    K2.LAUNCHES = K2.LAUNCHES_WGMMA = K2.LAUNCHES_WMMA = K2.LAUNCHES_F32 = 0
     K2.PLAIN_CALLS = 0
     t0 = time.perf_counter()
-    ft, cold = timed_units(ft, P.units_per_iteration(cfg, pc.accum))
+    ft, cold = timed_units(unit, ft, P.units_per_iteration(cfg, pc.accum))
     iter_s = time.perf_counter() - t0
     train_launches, train_plain = K2.LAUNCHES, K2.PLAIN_CALLS
+    train_wgmma = K2.LAUNCHES_WGMMA
     peak_train = torch.cuda.max_memory_allocated()
     state_bytes = tree_bytes(ft["adapters"]) + tree_bytes(
         [ft["opt"]["m"], ft["opt"]["v"]]) + tree_bytes(ft["grads"]) + \
@@ -461,13 +535,15 @@ def phase6_train(cfg, params, seq_len):
             f"ms_median={1e3 * statistics.median(ts):.3f} "
             f"ms_total={1e3 * sum(ts):.3f}")
     log(f"train: K2 launches={train_launches} ({cfg.num_layers} x 7 + "
-        f"{cfg.num_layers} x 14 = {n_k2}), plain calls={train_plain}, "
+        f"{cfg.num_layers} x 14 = {n_k2}), of them on the wgmma kernel "
+        f"{train_wgmma}, plain calls={train_plain}, "
         f"iter={ft['iter']}, last_loss={last_loss:.4f} (ln V = "
         f"{float(np.log(cfg.vocab_size)):.4f}), nonzero B entries after "
         f"OPT={b_moved}, max_memory_allocated_gb={peak_train / 1e9:.3f}, "
         f"adapters+opt+grads+residuals_gb={state_bytes / 1e9:.3f}")
-    if train_launches != n_k2 or train_plain:
-        raise AssertionError("the training iteration did not run through K2")
+    if train_launches != n_k2 or train_plain or train_wgmma != n_k2:
+        raise AssertionError("the training iteration did not run through "
+                             "K2's wgmma kernel")
     if ft["iter"] != 1 or not np.isfinite(last_loss) or \
             abs(last_loss - float(np.log(cfg.vocab_size))) > 2.0 or \
             b_moved == 0:
@@ -475,24 +551,77 @@ def phase6_train(cfg, params, seq_len):
 
     # the next microbatch, from a state whose adapters are no longer a
     # no-op (at B = 0 both paths compute the same bits: the delta is 0 and
-    # the tensor-core sums run in the same order)
-    ft_plain = tree_map(
-        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, ft)
-    ft, warm = timed_units(ft, upm)
-    for kind, ts in warm.items():
-        log(f"train: warm {kind:9s} units={len(ts):3d} ms_median="
-            f"{1e3 * statistics.median(ts):.3f} ms_total={1e3 * sum(ts):.3f}")
+    # the tensor-core sums run in the same order). Each route from the same
+    # state: synchronized after every unit (times by kind), and as one
+    # stream of units with a single synchronize at the end, as co-located
+    # rounds run them, three times each in turns (the host's speed varies
+    # within a run)
+    def clone(tree):
+        return tree_map(
+            lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+    start = clone(ft)
     unit_plain = P.make_unit_step(cfg, pc, params, use_kernels=False)
-    t0 = time.perf_counter()
-    ft_plain = P.run_units(unit_plain, ft_plain, upm)
-    torch.cuda.synchronize()
-    plain_mb_s = time.perf_counter() - t0
+    ft, warm = timed_units(unit, ft, upm)
+    ft_plain, warm_plain = timed_units(unit_plain, clone(start), upm)
+    stream = {"K2": [], "plain": []}
+    for name, step in 3 * (("plain", unit_plain), ("K2", unit)):
+        state = clone(start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P.run_units(step, state, upm)
+        torch.cuda.synchronize()
+        stream[name].append(time.perf_counter() - t0)
+        del state
+    # where a synchronized BWD unit's time goes on each route: the units
+    # up to the first BWD unit run unprofiled, then a profiler window over
+    # four BWD units, synchronized after each, reads the wall time beside
+    # the device's busy time (the rest is the host's)
+    from torch.profiler import ProfilerActivity, profile
+    first_bwd = cfg.num_layers + 2
+    for name, step in (("K2", unit), ("plain", unit_plain)):
+        state = P.run_units(step, clone(start), first_bwd)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(4):
+                state = step(state)
+                torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        rows = device_rows(prof)
+        busy_us = sum(r[1] for r in rows)
+        k2_us = sum(r[1] for r in rows if "lora_matmul" in r[0])
+        log(f"train: profile of 4 BWD units, "
+            f"{'with K2' if name == 'K2' else 'without K2 (cuBLAS)'}: wall "
+            f"{window * 1e3 / 4:.3f} ms per unit, device busy "
+            f"{busy_us / 1e3 / 4:.3f} ms per unit (K2's kernels "
+            f"{k2_us / 1e3 / 4:.3f}), busy share "
+            f"{busy_us / 1e6 / window:.3f}, device events per unit "
+            f"{sum(r[2] for r in rows) / 4:.1f}")
+        del state
+    del start
+    for kind, ts in warm.items():
+        tp = warm_plain[kind]
+        log(f"train: warm {kind:9s} units={len(ts):3d} with K2 ms_median="
+            f"{1e3 * statistics.median(ts):.3f} ms_total={1e3 * sum(ts):.3f}"
+            f"; without ms_median={1e3 * statistics.median(tp):.3f} "
+            f"ms_total={1e3 * sum(tp):.3f}")
     loss_k, loss_p = float(ft["loss"]), float(ft_plain["loss"])
     g_rel, g_frob, g_where = grad_agreement(ft["grads"]["scan"],
                                             ft_plain["grads"]["scan"])
-    log(f"train: second microbatch, units with K2 "
-        f"({1e3 * sum(map(sum, warm.values())):.3f} ms) vs without "
-        f"({1e3 * plain_mb_s:.3f} ms): loss {loss_k:.6f} vs {loss_p:.6f} "
+    k2_mb_s = sum(map(sum, warm.values()))
+    plain_mb_s = sum(map(sum, warm_plain.values()))
+    stream_ratio = statistics.median(stream["K2"]) / \
+        statistics.median(stream["plain"])
+    log(f"train: second microbatch, units with K2 vs without (the same "
+        f"units through cuBLAS): synchronized per unit {1e3 * k2_mb_s:.3f} "
+        f"vs {1e3 * plain_mb_s:.3f} ms, ratio {k2_mb_s / plain_mb_s:.3f}; "
+        f"as one stream, three times each in turns, "
+        f"{[round(1e3 * t, 3) for t in stream['K2']]} vs "
+        f"{[round(1e3 * t, 3) for t in stream['plain']]} ms, ratio of "
+        f"medians {stream_ratio:.3f}")
+    log(f"train: second microbatch, with K2 vs without: "
+        f"loss {loss_k:.6f} vs {loss_p:.6f} "
         f"(rtol {TRAIN_LOSS_RTOL}); grads worst relative Frobenius error="
         f"{g_frob:.3e} (tol {TRAIN_GRAD_FROB_TOL}), worst max_err_over_rms="
         f"{g_rel:.3e} ({g_where})")
@@ -562,7 +691,8 @@ def phase7_colocated(cfg, params, eng, solo_round_s, seq_len):
     u0, it0, mb0 = ft["unit_idx"], ft["iter"], ft["consumed"]
     colo_reqs = []
     K.LAUNCHES = K.PLAIN_CALLS = 0
-    K2.LAUNCHES = K2.PLAIN_CALLS = 0
+    K2.LAUNCHES = K2.LAUNCHES_WGMMA = K2.LAUNCHES_WMMA = K2.LAUNCHES_F32 = 0
+    K2.PLAIN_CALLS = 0
     total_units = P.units_per_iteration(cfg, pc7.accum)
     t0 = time.perf_counter()
     # more waves of requests until the serving itself has run a whole
@@ -580,7 +710,7 @@ def phase7_colocated(cfg, params, eng, solo_round_s, seq_len):
     wall7 = time.perf_counter() - t0
     units = m7.ft_units
     k1_7, k1p_7 = K.LAUNCHES, K.PLAIN_CALLS
-    k2_7, k2p_7 = K2.LAUNCHES, K2.PLAIN_CALLS
+    k2_7, k2p_7, k2w_7 = K2.LAUNCHES, K2.PLAIN_CALLS, K2.LAUNCHES_WGMMA
     k2_expect = sum(k2_launches_of_unit(P, cfg, pc7, (u0 + j) % total_units)
                     for j in range(units))
     ks = [dd.k for dd in sched.decisions]
@@ -600,13 +730,13 @@ def phase7_colocated(cfg, params, eng, solo_round_s, seq_len):
         f"last_loss={float(ft['last_loss']):.4f} K1 launches={k1_7} "
         f"({cfg.num_layers} x {m7.decode_rounds} rounds = "
         f"{cfg.num_layers * m7.decode_rounds}) "
-        f"K2 launches={k2_7} (expected from the units run: {k2_expect}) "
-        f"plain calls={k1p_7 + k2p_7}")
+        f"K2 launches={k2_7} (expected from the units run: {k2_expect}; on "
+        f"the wgmma kernel {k2w_7}) plain calls={k1p_7 + k2p_7}")
     if not all(rq.phase.value == "done" and rq.generated == 32
                for rq in colo_reqs):
         raise AssertionError("not every co-located request finished")
     if k1_7 != cfg.num_layers * m7.decode_rounds or k2_7 != k2_expect or \
-            k1p_7 or k2p_7:
+            k2w_7 != k2_7 or k1p_7 or k2p_7:
         raise AssertionError("co-located rounds did not run through K1/K2")
     if units < total_units or ft["iter"] <= it0:
         raise AssertionError("co-located serving ran less than an iteration "
@@ -886,9 +1016,7 @@ def phase9_mamba2(dev, cfg):
             MD.decode_step(params, cfg, tok, pos, eng.cache, use_kernels=True)
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    rows = device_rows(prof)
     busy_us = sum(r[1] for r in rows)
     launch_calls = sum(e.count for e in prof.key_averages()
                        if e.device_type == DeviceType.CPU and
@@ -921,6 +1049,15 @@ def phases_llama3(dev):
                 check_k1(K, *args, label=f"{str(dtype)[6:]} H={H} KV={KV} "
                          f"g={H // KV} B={B} ptok=64 pages=16 lengths="
                          f"{args[4].tolist()}")
+    # the long context: one sequence, every page full (8 CTAs before the
+    # split, 8 x 16 with it)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = k1_inputs(1, 32, 8, 128, 64, 16, dtype, seed=99, full=True)
+        check_k1(K, *args, label=f"{str(dtype)[6:]} H=32 KV=8 g=4 B=1 ptok=64 "
+                 f"pages=16, all full (long context), lengths "
+                 f"{args[4].tolist()}, splits {K._k1_splits(16, 64)}")
+        if dtype == torch.bfloat16:
+            k1_split_scan(K, args, "bf16 B=1, 16 full pages")
 
     # ------------------------------------ 3. main path: full-width serve --
     cfg = get_config("llama3-8b")
@@ -996,6 +1133,7 @@ def phases_llama3(dev):
                  pos + 1)
     main_k1 = check_k1(K, *main_args, label="main path (llama3-8b layer-0 "
                        f"cache after serving, lengths {(pos + 1).tolist()})")
+    k1_split_scan(K, main_args, "main path")
 
     # ---------------------------------------------- 4. profiler window --
     from torch.autograd import DeviceType
@@ -1008,16 +1146,18 @@ def phases_llama3(dev):
             MD.decode_step(params, cfg, tok, pos, eng.cache, use_kernels=True)
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    # device-side events only: a host op's row repeats its kernels' time
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    rows = device_rows(prof)
     busy_us = sum(r[1] for r in rows)
     log(f"profile: 5 decode steps, wall {window * 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms, busy share {busy_us / 1e6 / window:.3f}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"profile:   {us / 1e3 / 5:9.4f} ms/step  x{count // 5:<4d} "
             f"{key[:90]}")
+    for key, us, count in rows:         # K1's two kernels (split, combine)
+        if "paged_decode" in key:
+            name = key[key.index("paged_decode"):].split("<")[0]
+            log(f"profile: K1 {name}: {us / count:.2f} us per launch, "
+                f"x{count // 5} per step")
     # host side: CUDA runtime/driver calls (launches, copies, synchronizations)
     api = [(e.key, e.self_cpu_time_total, e.count)
            for e in prof.key_averages()

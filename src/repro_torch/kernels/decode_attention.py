@@ -6,6 +6,14 @@
 `paged_decode_attention_plain`, the plain torch version beside it, only for
 CPU tensors. The kernel is built at first launch (`kernels/build.py`).
 
+The kernel splits each sequence's positions across CTAs (flash-decoding):
+`_k1_splits` picks the number of splits and their length from the table's
+width and the page size alone, so the wrapper never reads `lengths` on the
+host (that would synchronise every layer of every round). The wrapper
+allocates an f32 workspace for the partials, and a call makes two device
+launches (the splits, then their combination); it counts once in
+`LAUNCHES`.
+
 Layout:
   q           (B, H, hd)
   k/v pages   (P, ptok, KV, hd)      one layer's pool
@@ -29,13 +37,27 @@ LAUNCHES = 0
 PLAIN_CALLS = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SPLIT_TOKENS = 64       # positions per split: one page of the serving cache
+MAX_SPLITS = 64         # the combine kernel's limit
+MAX_GROUP_DIMS = 4096   # g * hd: the (head, dim) accumulators of one CTA
+
+
+def _k1_splits(n_pages: int, ptok: int) -> tuple:
+    """(n_splits, split_tokens) for a table of n_pages pages of ptok
+    positions: splits of SPLIT_TOKENS positions, longer (a multiple of the
+    kernel's 32-token tile) where that would make more than MAX_SPLITS."""
+    total = n_pages * ptok
+    split = SPLIT_TOKENS
+    if -(-total // split) > MAX_SPLITS:
+        split = -(-total // (MAX_SPLITS * 32)) * 32
+    return max(1, -(-total // split)), split
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
     fn = lib.repro_paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -115,14 +137,22 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
             k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("the kernel needs hd <= 256, rows of a multiple of "
                          "16 bytes and 16-byte aligned K/V pages")
+    if (H // KV) * hd > MAX_GROUP_DIMS:
+        raise ValueError(f"the kernel needs g * hd <= {MAX_GROUP_DIMS}, got "
+                         f"{H // KV} * {hd}")
+    n_pages = page_table.shape[1]
+    n_splits, split_tokens = _k1_splits(n_pages, ptok)
     out = torch.empty_like(q)
+    work = torch.empty(n_splits * B * H * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.repro_paged_decode_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, KV, H // KV, hd, page_table.shape[1], ptok,
-            k_pages.shape[0], float(scale),
+            work.data_ptr(),
+            _DTYPES[q.dtype], B, KV, H // KV, hd, n_pages, ptok,
+            k_pages.shape[0], n_splits, split_tokens, float(scale),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("paged_decode_attention launch failed: "

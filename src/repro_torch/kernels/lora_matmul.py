@@ -1,10 +1,19 @@
 """Fused LoRA matmul y = x @ W + s * (x @ A) @ B: the finetune hot spot (K2).
 
-`lora_matmul` launches the hand-written CUDA kernel in
-`csrc/lora_matmul.cu` (the port of the Pallas kernel
-`repro/kernels/lora_matmul.py::_kernel`) for CUDA tensors, and uses
-`lora_matmul_plain`, the plain torch version beside it, only for CPU
-tensors. The kernel is built at first launch (`kernels/build.py`).
+`lora_matmul` launches a hand-written CUDA kernel of `csrc/lora_matmul.cu`
+(the port of the Pallas kernel `repro/kernels/lora_matmul.py::_kernel`) for
+CUDA tensors, and uses `lora_matmul_plain`, the plain torch version beside
+it, only for CPU tensors. The kernels are built at first launch
+(`kernels/build.py`).
+
+`_k2_path` picks the kernel from the shape before the launch: bf16 shapes
+whose rows TMA can describe (K, N and r multiples of 8) go to the
+persistent wgmma + TMA kernel (which picks its own tile width: 256 where
+the tiles fill the card, 128 where they would not, as at N = 1024); other
+bf16 shapes to the WMMA kernel; f32 to the FMA kernel. Each launch counts in
+`LAUNCHES` and in its kernel's own counter (`LAUNCHES_WGMMA`,
+`LAUNCHES_WMMA`, `LAUNCHES_F32`). A kernel that fails raises: no other
+kernel is tried.
 
 `LoRAMatmul` is the autograd Function around it. The Pallas kernel has no
 backward; the port's input gradient has the forward's fused form,
@@ -27,20 +36,37 @@ import torch
 
 from repro_torch.kernels import build
 
-# Counts of kernel launches and of plain-version calls made by the wrapper,
-# so that a run can show which path it took. Reset by assigning 0.
+# Counts of kernel launches (in all, and by kernel) and of plain-version
+# calls made by the wrapper, so that a run can show which path it took.
+# Reset by assigning 0.
 LAUNCHES = 0
+LAUNCHES_WGMMA = 0
+LAUNCHES_WMMA = 0
+LAUNCHES_F32 = 0
 PLAIN_CALLS = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RANK = 64
+# kernel codes of the C entry point
+_KERNELS = {"f32": 0, "wmma": 1, "wgmma": 2}
+
+
+def _k2_path(M: int, N: int, K: int, r: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call of this shape launches: "f32" (FMA),
+    "wmma" (bf16 rows TMA cannot describe: K, N or r not a multiple of 8),
+    or "wgmma"."""
+    if dtype == torch.float32:
+        return "f32"
+    if K % 8 or N % 8 or r % 8:
+        return "wmma"
+    return "wgmma"
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("lora_matmul")
     fn = lib.repro_lora_matmul
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.repro_lora_matmul_error_string.argtypes = [ctypes.c_int]
@@ -79,7 +105,7 @@ def _check(x, w, a, b):
 def lora_matmul(x, w, a, b, scale: float) -> torch.Tensor:
     """Returns (M, N) in x's dtype. CUDA tensors go through the kernel
     (errors raise), CPU tensors through the plain version."""
-    global LAUNCHES, PLAIN_CALLS
+    global LAUNCHES, LAUNCHES_WGMMA, LAUNCHES_WMMA, LAUNCHES_F32, PLAIN_CALLS
     _check(x, w, a, b)
     if x.device.type == "cpu":
         PLAIN_CALLS += 1
@@ -103,17 +129,25 @@ def lora_matmul(x, w, a, b, scale: float) -> torch.Tensor:
         raise ValueError(f"the kernel takes rank <= {MAX_RANK}, got {r}")
     if any(t.data_ptr() % 16 for t in (x, w, a, b)):
         raise ValueError("the kernel needs 16-byte aligned inputs")
+    path = _k2_path(M, N, K, r, x.dtype)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.repro_lora_matmul(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), _DTYPES[x.dtype], M, N, K, r, w_trans,
-            float(scale), torch.cuda.current_stream().cuda_stream)
+            _KERNELS[path], float(scale),
+            torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError("lora_matmul launch failed: "
+        raise RuntimeError(f"lora_matmul launch failed ({path} kernel): "
                            + lib.repro_lora_matmul_error_string(err).decode())
     LAUNCHES += 1
+    if path == "f32":
+        LAUNCHES_F32 += 1
+    elif path == "wmma":
+        LAUNCHES_WMMA += 1
+    else:
+        LAUNCHES_WGMMA += 1
     return out
 
 

@@ -110,3 +110,25 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         K.paged_decode_attention(q, kp, vp[:, :4], pt, lengths)
 
+
+
+# The split-KV plan, from the table's width alone (the host never reads the
+# lengths): splits of 64 positions, at most MAX_SPLITS of them, each a
+# multiple of the kernel's 32-token tile, covering every position once.
+@pytest.mark.parametrize("n_pages,ptok,plan", [
+    (16, 64, (16, 64)),       # the serving cache: s_max 1024 in pages of 64
+    (1, 160, (3, 64)),        # one page per slot (S not a multiple of 64)
+    (4, 32, (2, 64)),
+    (64, 64, (64, 64)),
+    (128, 64, (64, 128)),     # 8192 positions: longer splits
+    (3, 1000, (47, 64)),
+    (200, 64, (58, 224)),
+    (1, 8, (1, 64)),
+    (0, 64, (1, 64)),         # an empty table still launches one split
+])
+def test_split_plan(n_pages, ptok, plan):
+    n_splits, split = K._k1_splits(n_pages, ptok)
+    assert (n_splits, split) == plan
+    total = n_pages * ptok
+    assert 1 <= n_splits <= K.MAX_SPLITS and split % 32 == 0
+    assert n_splits * split >= total and (n_splits - 1) * split < max(total, 1)

@@ -1,9 +1,15 @@
-"""Card-only tests of the port: the CUDA paged decode kernel (K1), the
-LoRA matmul kernel (K2: forward, the transposed-W dx form, and the autograd
-Function's backward) and the SSD scan kernel (K3: ragged chunks, an initial
+"""Card-only tests of the port: the CUDA paged decode kernel (K1, split
+across CTAs: lengths of 0 and 1, on a page boundary, a -1 page inside a
+table, one sequence with every page full), the LoRA matmul kernels (K2:
+the wgmma kernel at tile edges, ranks 8-64, more tiles than SMs and
+scales that are not a power of two, or 0; the WMMA kernel at ragged
+shapes, the f32 kernel; forward, the transposed-W dx form, and the
+autograd Function's backward; which kernel each shape took, by the
+counters) and the SSD scan kernel (K3: ragged chunks, an initial
 state, bf16 inputs read through the strides of the conv output) against
 their plain torch versions, a decode step through K1 against the dense
-oracle, and an SSM prefill through K3 against the plain scan. Each skips with a reason where no CUDA device is present. This file
+oracle, and an SSM prefill through K3 against the plain scan. Each skips
+with a reason where no CUDA device is present. This file
 imports no JAX (the machine with the card has none), so run it there with
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -72,6 +78,43 @@ def test_cuda_kernel_matches_plain(B, H, KV, hd, ptok, npg, dtype):
     torch.testing.assert_close(got.float(), expect.float(), atol=tol, rtol=tol)
 
 
+# B, H, KV, hd, ptok, n_pages, lengths, -1 pages (b, p): the split-KV
+# edges. Splits are 64 positions, so a length of 64 or 128 ends a split
+# exactly; length 0 leaves every split empty.
+K1_SPLIT_CASES = {
+    "length 1": (2, 32, 8, 128, 64, 16, [1, 1], []),
+    "page boundary": (3, 32, 8, 128, 64, 16, [64, 128, 1024], []),
+    "-1 page inside": (2, 32, 8, 128, 64, 16, [1024, 700], [(0, 5), (1, 3)]),
+    "length 0": (3, 32, 8, 128, 64, 16, [0, 100, 0], []),
+    "B 1, all pages full": (1, 32, 8, 128, 64, 16, [1024], []),
+    "one page per slot": (3, 4, 2, 16, 160, 1, [160, 7, 64], []),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(K1_SPLIT_CASES))
+def test_k1_splits_match_plain(case, dtype):
+    B, H, KV, hd, ptok, npg, lengths, holes = K1_SPLIT_CASES[case]
+    q, kp, vp, pt, _ = _inputs(B, H, KV, hd, ptok, npg, dtype, _card(),
+                               seed=len(case))
+    pt[0, -1] = kp.shape[0] - 1      # a real page (the pool has 2 spare) ...
+    for b, p in holes:               # ... and the holes asked for
+        pt[b, p] = -1
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=q.device)
+    expect = K.paged_decode_attention_plain(q, kp, vp, pt, lengths)
+    got = K.paged_decode_attention(q, kp, vp, pt, lengths)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    # bf16: one rounding of the output; f32: another summation order, and
+    # the partials rescaled by exp(m_split - m) before they are summed
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), expect.float(), atol=tol, rtol=tol)
+    for b, n in enumerate(lengths.tolist()):
+        if n == 0:                   # nothing valid: exactly 0, not NaN
+            assert not got[b].any()
+
+
 @pytest.mark.gpu
 def test_decode_step_through_kernel_matches_oracle():
     dev = _card()
@@ -122,15 +165,44 @@ def _rel(got, expect):
     return err / expect.float().square().mean().sqrt().item()
 
 
+# the wgmma kernel's edges: M, N and K one past a tile or a K step (M 200
+# = 128 + 72, N 1032 = 4 x 256 + 8, K 4104 = 64 x 64 + 8), every rank size
+# (A and B padded to 16, 32 or 64 by TMA's zero fill), both W forms; and
+# 16 x 56 tiles of 128 x 256 on 132 SMs (gate/up and the dx form of down)
+K2_CASES += [(200, 4104, 1032, r, torch.bfloat16, trans)
+             for r in (8, 16, 32, 64) for trans in (False, True)]
+K2_CASES += [(2048, 4096, 14336, 16, torch.bfloat16, False),
+             (2048, 4096, 14336, 16, torch.bfloat16, True)]
+
+_COUNTERS = {"wgmma": "LAUNCHES_WGMMA", "wmma": "LAUNCHES_WMMA",
+             "f32": "LAUNCHES_F32"}
+
+
+def _k2_counts():
+    return {name: getattr(K2, name) for name in
+            ("LAUNCHES", "LAUNCHES_WGMMA", "LAUNCHES_WMMA", "LAUNCHES_F32")}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N,r,dtype,trans", K2_CASES)
 def test_k2_kernel_matches_plain(M, K, N, r, dtype, trans):
     x, w, a, b = _k2_inputs(M, K, N, r, dtype, trans, _card())
     expect = K2.lora_matmul_plain(x, w, a, b, 2.0)
-    before = K2.LAUNCHES
+    path = K2._k2_path(M, N, K, r, dtype)
+    # ragged bf16 shapes (rows not a multiple of 16 bytes) take the WMMA
+    # kernel, every other bf16 shape the wgmma kernel
+    if dtype == torch.float32:
+        assert path == "f32"
+    elif (K, N, r) == (200, 130, 4):
+        assert path == "wmma"
+    else:
+        assert path == "wgmma"
+    before = _k2_counts()
     got = K2.lora_matmul(x, w, a, b, 2.0)
     torch.cuda.synchronize()
-    assert K2.LAUNCHES == before + 1
+    after = _k2_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k in ("LAUNCHES", _COUNTERS[path])) for k in after}
     assert got.dtype == dtype and got.shape == (M, N)
     # test_kernels.py's tolerances: bf16 rounds the output once, f32 sums
     # in another order
@@ -141,6 +213,28 @@ def test_k2_kernel_matches_plain(M, K, N, r, dtype, trans):
             <= 2e-2
 
 
+# the wgmma epilogue forms acc + s * xa @ B as (acc / s + xa @ B) * s: exact
+# at the training path's s = 2, one f32 rounding per scaling (relative 6e-8)
+# at a scale that is not a power of two, far below the output's bf16
+# rounding; s = 0 skips xa @ B. Both W forms, the tolerances above.
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [0.75, 1 / 3, 0.0])
+@pytest.mark.parametrize("trans", [False, True])
+def test_k2_wgmma_scale_not_a_power_of_two(scale, trans):
+    x, w, a, b = _k2_inputs(200, 4104, 1032, 16, torch.bfloat16, trans,
+                            _card(), seed=5)
+    before = K2.LAUNCHES_WGMMA
+    got = K2.lora_matmul(x, w, a, b, scale)
+    torch.cuda.synchronize()
+    assert K2.LAUNCHES_WGMMA == before + 1
+    expect = K2.lora_matmul_plain(x, w, a, b, scale)
+    torch.testing.assert_close(got.float(), expect.float(), atol=3e-2,
+                               rtol=3e-2)
+    assert _rel(got, K2.lora_matmul_plain(x.float(), w, a, b, scale)) <= 2e-2
+    if scale == 0.0:     # x @ W alone, rounded once
+        assert _rel(got, (x.float() @ w.float())) <= 2e-2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_function_backward_matches_autograd_of_plain(dtype):
@@ -148,6 +242,7 @@ def test_k2_function_backward_matches_autograd_of_plain(dtype):
     x, w, a, b = _k2_inputs(96, 256, 160, 16, dtype, False, dev, seed=3)
     dy = _k2_inputs(96, 160, 1, 1, dtype, False, dev, seed=4)[0]
     grads = {}
+    before = _k2_counts()
     for name, fn in (("kernel", kops.lora_matmul),
                      ("plain", K2.lora_matmul_plain)):
         xs, as_, bs = (t.detach().clone().requires_grad_()
@@ -155,6 +250,10 @@ def test_k2_function_backward_matches_autograd_of_plain(dtype):
         y = fn(xs, w, as_, bs, 2.0)
         y.backward(dy)
         grads[name] = (y, xs.grad, as_.grad, bs.grad)
+    # the forward and dx both launched the kernel this dtype takes (bf16:
+    # wgmma, W read MN-major and then K-major)
+    counter = "LAUNCHES_WGMMA" if dtype == torch.bfloat16 else "LAUNCHES_F32"
+    assert getattr(K2, counter) - before[counter] == 2
     tol = 3e-2 if dtype == torch.bfloat16 else 2e-4
     for got, expect in zip(grads["kernel"], grads["plain"]):
         torch.testing.assert_close(got.float(), expect.float(), atol=tol,

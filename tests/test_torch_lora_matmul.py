@@ -133,3 +133,37 @@ def test_wrapper_checks_and_devices():
     meta = [t.to("meta") for t in (x, w, a, b)]
     with pytest.raises(ValueError, match="unsupported device"):
         K2.lora_matmul(*meta, 1.0)
+
+
+# The kernel each CUDA call takes, decided on the host from the shape alone
+# (M, N, K, r, dtype -> kernel). The training path's bf16 shapes at
+# llama3-8b (M = 2 x 1024 tokens) all take the wgmma kernel, which picks its
+# tile width itself (128 x 256, or 128 x 128 at N = 1024).
+@pytest.mark.parametrize("M,N,K,r,dtype,path", [
+    (2048, 14336, 4096, 16, torch.bfloat16, "wgmma"),   # gate/up
+    (2048, 1024, 4096, 16, torch.bfloat16, "wgmma"),    # k/v
+    (2048, 4096, 4096, 16, torch.bfloat16, "wgmma"),    # q/o
+    (2048, 4096, 14336, 16, torch.bfloat16, "wgmma"),   # down, dx gate
+    (2048, 14336, 4096, 16, torch.bfloat16, "wgmma"),   # dx of down
+    (2048, 4096, 1024, 16, torch.bfloat16, "wgmma"),    # dx of k/v
+    (1, 8, 8, 8, torch.bfloat16, "wgmma"),              # one short row
+    (200, 1032, 4104, 8, torch.bfloat16, "wgmma"),      # tile edges
+    (300, 200, 1024, 40, torch.bfloat16, "wgmma"),      # r 40 -> 64
+    (37, 130, 200, 4, torch.bfloat16, "wmma"),          # 8-byte rows
+    (64, 128, 100, 16, torch.bfloat16, "wmma"),         # K % 8
+    (64, 100, 128, 16, torch.bfloat16, "wmma"),         # N % 8
+    (64, 128, 128, 12, torch.bfloat16, "wmma"),         # r % 8
+    (2048, 14336, 4096, 16, torch.float32, "f32"),
+])
+def test_kernel_dispatch_by_shape(M, N, K, r, dtype, path):
+    assert K2._k2_path(M, N, K, r, dtype) == path
+    assert path in K2._KERNELS
+
+
+def test_cpu_calls_count_no_kernel_launch():
+    x, w, a, b = to_torch(_inputs((8, 16), 16, 24, 8, jnp.bfloat16, seed=7))
+    counts = (K2.LAUNCHES, K2.LAUNCHES_WGMMA, K2.LAUNCHES_WMMA,
+              K2.LAUNCHES_F32, K2.PLAIN_CALLS)
+    K2.lora_matmul(x, w, a, b, 2.0)
+    assert (K2.LAUNCHES, K2.LAUNCHES_WGMMA, K2.LAUNCHES_WMMA,
+            K2.LAUNCHES_F32, K2.PLAIN_CALLS) == counts[:4] + (counts[4] + 1,)
