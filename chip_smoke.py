@@ -43,19 +43,29 @@ Phases, in order; any failure ends the run with a nonzero exit:
      and an OPT) served through `ColocatedRunner(k_max=6,
      use_kernels=True)` and the QoS scheduler, K1 and K2 launches counted.
 Then the llama3 objects are freed and the peak-memory count reset:
-  8. the SSD scan kernel (K3) against its plain torch version on the card
-     at mamba2-780m's prefill shapes (nh 48, hd 64, ds 128, chunk 256; B 1
-     and 2, S 64/71/256/300/512; xs/Bt/Ct bf16 slices of one conv output
-     and dt f32, h0 zeros; a random h0; one all-f32 case), and both against
-     an f64 token-by-token recurrence (the witness), timed beside its bound
-     and the plain version (no single torch call computes the SSD scan, so
-     there is no library yardstick);
+  8. the SSD scan kernels (K3) against their plain torch version on the
+     card at mamba2-780m's prefill shapes (nh 48, hd 64, ds 128, chunk 256;
+     B 1 and 2, S 64/71/256/300/512; xs/Bt/Ct bf16 slices of one conv
+     output and dt f32, h0 zeros; a random h0; one all-f32 case), each
+     asserted by its counters to run the chunk-parallel tensor-core kernel
+     (bf16) or the FMA kernel (f32), and both against an f64 token-by-token
+     recurrence (the witness), timed beside the bound (bf16 tensor-core
+     peak for bf16, f32 peak for f32; the f32-peak figure printed beside
+     it) and the plain version (no single torch call computes the SSD
+     scan, so there is no library yardstick); at B 1 S 512 K3 also against
+     `ssd_split_emulation` (its own arithmetic in plain torch), and a
+     profiler window over that case: each of its three kernels' device us
+     per launch and the three together per call;
   9. the SSM serving path: `ServingEngine(use_kernels=True)` serves 16
      requests on full-width mamba2-780m (48 layers, d 1536, random seeded
      bf16 weights, 8 slots, s_max 1024), every admission's prefill through
-     K3 (48 launches each); then 4 prompts of 300 tokens prefilled with K3,
-     with the plain f32 scan and with the f64 witness as the scan, on the
-     same weights (logits and final state held against the witness's), and
+     K3's tensor-core kernel (48 launches each, asserted by the counters);
+     a profiled prefill of 1 x 300 tokens (K3's share of its device time);
+     then 4 prompts of 300 tokens prefilled with K3,
+     with the plain f32 scan, with the f64 witness and with the split
+     emulation as the scan, on the same weights (logits and final state
+     held against the witness's; the emulation's own distance printed
+     beside K3's, to tell the split's expected error from a fault), and
      a profiler window over 5 decode steps (plain torch: the reference's
      SSM decode has no kernel).
 The second line from the end lists the kernels as JSON; the last line is
@@ -120,7 +130,8 @@ K3_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 K3_REPLACES = "src/repro/kernels/ssd_scan.py:71"
 # K3 vs plain (tests/test_kernels.py's SSD tolerance, atol and rtol): both
 # compute in f32 from the same inputs, in another order of the sums (and
-# the kernel's decay cumsum in double)
+# the kernel's decay cumsum in double; on the tensor-core kernel, each f32
+# operand of a product as bf16 hi + lo, ~2^-17 relative)
 K3_TOL = 2e-3
 # phase 9, a full-width mamba2 prefill of 4 x 300 tokens with K3, held
 # against the same prefill with its scan in float64 (`ssd_f64_witness`).
@@ -149,9 +160,17 @@ def card_line() -> str:
 _FLUSH = None
 
 
+# cycles of the device-side wait before each timed call: ~1 ms at the
+# H100's 1.98 GHz, more than a call's host work (a K3 call: ~0.14 ms)
+HOST_LEAD_CYCLES = 2_000_000
+
+
 def time_ms(fn, iters: int = 30) -> float:
     """Median device time of one call, by CUDA events; the 50 MB L2 is
-    overwritten before each call, as a decode round's weight reads do."""
+    overwritten before each call, as a decode round's weight reads do.
+    Then the device waits ~1 ms before the start event, so that the host
+    has enqueued the whole call by the time the device reaches it: the
+    events time the device, not the host's work between launches."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
@@ -161,6 +180,7 @@ def time_ms(fn, iters: int = 30) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         _FLUSH.zero_()
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         s.record()
         fn()
         e.record()
@@ -745,15 +765,18 @@ def phase7_colocated(cfg, params, eng, solo_round_s, seq_len):
 
 
 # ------------------------------------------------------------------ K3 ----
-def k3_bound_ms(B, S, nh, hd, ds, c, item, with_h0):
-    """Least time for the same work. Bytes: xs, Bt, Ct (item bytes), dt, A
+def k3_bound_ms(B, S, nh, hd, ds, c, dtype, with_h0):
+    """Least time for the same work. Bytes: xs, Bt, Ct (in `dtype`), dt, A
     and h0 (f32) read once, y and hT (f32) written once. Operations, over
-    the f32 peak, for the rows this run has (a ragged chunk counts its L
-    rows): per chunk the causal scores C.B^T once (shared by the heads,
-    ds*L(L+1) flops), and per head the masked decayed form times dt
+    the peak of the units the inputs feed (bf16 tensor cores for bf16, the
+    f32 units for f32), for the rows this run has (a ragged chunk counts
+    its L rows): per chunk the causal scores C.B^T once (shared by the
+    heads, ds*L(L+1) flops), and per head the masked decayed form times dt
     (L(L+1)), its product with x (hd*L(L+1)), the state update (2*L*hd*ds)
     and, where a state comes in (an h0, or an earlier chunk), the inter
-    term (2*L*hd*ds)."""
+    term (2*L*hd*ds). Returns (ms, "bytes" or "operations", the same work
+    bounded by the f32 peak: the bound before K3 ran on tensor cores)."""
+    item = torch.tensor([], dtype=dtype).element_size()
     nbytes = (B * S * (nh * hd + 2 * ds) * item + B * S * nh * 4 + nh * 4
               + B * S * nh * hd * 4 + B * nh * hd * ds * 4 * (2 if with_h0
                                                                 else 1))
@@ -765,8 +788,10 @@ def k3_bound_ms(B, S, nh, hd, ds, c, item, with_h0):
         flops += ds * tri + nh * ((hd + 1) * tri + 2 * L * hd * ds + inter)
     flops *= B
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    f32_peak = max(t_bytes, flops / PEAK_FLOPS[torch.float32] * 1e3)
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations", f32_peak
 
 
 def k3_inputs(B, S, nh, hd, ds, dtype, h0, seed, dev):
@@ -807,12 +832,86 @@ def ssd_f64_witness(xs, dt, A, Bt, Ct, chunk, h0=None):
     return torch.stack(ys, dim=1).float(), h.float()
 
 
-def check_k3(K3, args, chunk, label):
-    """K3 vs plain on one input, timed; returns the kernels-line numbers."""
+def _split(v, one_rounding=False):
+    """An f32 operand as K3's tensor-core kernel feeds it to bf16 MMAs: hi
+    = bf16(v), lo = bf16(v - hi) (or lo = 0: one bf16 rounding)."""
+    hi = v.to(torch.bfloat16).float()
+    lo = torch.zeros_like(v) if one_rounding else \
+        (v - hi).to(torch.bfloat16).float()
+    return hi, lo
+
+
+def ssd_split_emulation(xs, dt, A, Bt, Ct, chunk, h0=None,
+                        one_rounding=False):
+    """K3's tensor-core route, its three passes in plain torch, rounding
+    where the kernel rounds: the decay cumsum of f32 dt * A in double, kept
+    as f32 hi + lo, exp in f32; bf16 xs/Bt/Ct exact; each f32 operand of a
+    product (w . B, the decayed scores G, the entering state h) as bf16 hi
+    + lo (`one_rounding`: hi alone); f32 products and sums, f32 states
+    between the passes. Returns y and hT in float32."""
+    B, S, nh, hd = xs.shape
+    ds = Bt.shape[-1]
+    c = min(chunk, S)
+    n = -(-S // c)
+    pad = n * c - S
+    x = F.pad(xs.float(), (0, 0, 0, 0, 0, pad)).reshape(B, n, c, nh, hd)
+    b = F.pad(Bt.float(), (0, 0, 0, pad)).reshape(B, n, c, ds)
+    cc = F.pad(Ct.float(), (0, 0, 0, pad)).reshape(B, n, c, ds)
+    d = F.pad(dt.float(), (0, 0, 0, pad)).reshape(B, n, c, nh)
+    cum = (d * A.float()).double().cumsum(dim=2)            # (B, n, c, nh)
+    cum_end = cum[:, :, -1:]
+    # pass 1: each chunk's own state
+    w = torch.exp((cum_end - cum).float()) * d
+    hi, lo = _split(w[..., None] * b[:, :, :, None, :], one_rounding)
+    hc = torch.einsum("bnjhp,bnjhs->bnhps", x, hi) + \
+        torch.einsum("bnjhp,bnjhs->bnhps", x, lo)
+    # pass 2: the states entering each chunk
+    decay = torch.exp(cum_end[:, :, 0].float())               # (B, n, nh)
+    h = torch.zeros((B, nh, hd, ds), device=xs.device) if h0 is None \
+        else h0.float()
+    enter = []
+    for k in range(n):
+        enter.append(h)
+        h = decay[:, k, :, None, None] * h + hc[:, k]
+    # pass 3: intra and inter terms
+    scores = torch.einsum("bnis,bnjs->bnij", cc, b)
+    causal = torch.ones((c, c), dtype=torch.bool,
+                        device=xs.device).tril()[..., None]
+    hi = cum.float()                  # the cumsum as f32 hi + lo, and
+    lo = (cum - hi.double()).float()  # cum_i - cum_j from the parts
+    diff = torch.where(causal, (hi[:, :, :, None] - hi[:, :, None]) +
+                       (lo[:, :, :, None] - lo[:, :, None]),
+                       -torch.inf)                            # (B,n,i,j,nh)
+    G = scores[..., None] * torch.exp(diff) * d[:, :, None]
+    g_hi, g_lo = _split(G, one_rounding)
+    y = torch.einsum("bnijh,bnjhp->bnihp", g_hi, x) + \
+        torch.einsum("bnijh,bnjhp->bnihp", g_lo, x)
+    s_hi, s_lo = _split(torch.stack(enter, dim=1), one_rounding)
+    inter = torch.einsum("bnis,bnhps->bnihp", cc, s_hi) + \
+        torch.einsum("bnis,bnhps->bnihp", cc, s_lo)
+    y = y + inter * torch.exp(hi + lo)[..., None]
+    return y.reshape(B, n * c, nh, hd)[:, :S], h
+
+
+def k3_counts(K3):
+    return {k: getattr(K3, k) for k in ("LAUNCHES", "LAUNCHES_TC",
+                                        "LAUNCHES_F32")}
+
+
+def check_k3(K3, args, chunk, label, path):
+    """K3 vs plain on one input, asserted by the counters to run the kernel
+    `path` names, timed; returns the kernels-line numbers."""
     xs, dt, A, Bt, Ct, h0 = args
     B, S, nh, hd = xs.shape
     ds = Bt.shape[-1]
+    before = k3_counts(K3)
     y, hT = K3.ssd_scan(xs, dt, A, Bt, Ct, chunk, h0=h0)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in k3_counts(K3).items()}
+    if moved != {"LAUNCHES": 1, "LAUNCHES_TC": int(path == "tc"),
+                 "LAUNCHES_F32": int(path == "f32")}:
+        raise AssertionError(f"K3 {label} did not run the {path} kernel: "
+                             f"{moved}")
     yr, hr = K3.ssd_scan_plain(xs, dt, A, Bt, Ct, chunk, h0=h0)
     yw, hw = ssd_f64_witness(xs, dt, A, Bt, Ct, chunk, h0=h0)
     torch.cuda.synchronize()
@@ -834,17 +933,20 @@ def check_k3(K3, args, chunk, label):
     plain_ms = time_ms(lambda: K3.ssd_scan_plain(xs, dt, A, Bt, Ct, chunk,
                                                  h0=h0), iters=10)
     c = min(chunk, S)
-    bound_ms, bound_by = k3_bound_ms(B, S, nh, hd, ds, c, xs.element_size(),
-                                     bool(h0.any()))
+    bound_ms, bound_by, f32_peak_ms = k3_bound_ms(B, S, nh, hd, ds, c,
+                                                  xs.dtype, bool(h0.any()))
     log(f"K3 {label}: B={B} S={S} nh={nh} hd={hd} ds={ds} c={c} "
         f"{str(xs.dtype)[6:]} h0={'random' if h0.any() else 'zeros'} "
+        f"kernel={path} "
         f"max_abs_err y={errs[0]:.3e} hT={errs[1]:.3e} (tol {K3_TOL}) "
         f"max_err_over_rms y={rels[0]:.3e} hT={rels[1]:.3e}; vs the f64 "
         f"witness: K3 y={max_err(y, yw):.3e} hT={max_err(hT, hw):.3e}, "
         f"plain y={max_err(yr, yw):.3e} hT={max_err(hr, hw):.3e}; ok={ok} "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none (no single "
         f"torch call computes the SSD scan) bound_ms={bound_ms:.4f} "
-        f"({bound_by}) bound_share={bound_ms / ms:.3f}")
+        f"({bound_by}) bound_share={bound_ms / ms:.3f}; the f32-peak "
+        f"bound (of K3's FMA kernel) {f32_peak_ms:.4f} ms, share "
+        f"{f32_peak_ms / ms:.3f}")
     if not ok:
         raise AssertionError(f"K3 disagrees with its plain version: {label}")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
@@ -853,9 +955,14 @@ def check_k3(K3, args, chunk, label):
 
 def phase8_k3(dev, cfg):
     """K3 against its plain version at `cfg`'s prefill shapes (mamba2-780m:
-    nh 48, hd 64, ds 128, chunk 256), timed. Returns the kernels-line
-    numbers of the largest prefill the serving runs (B 1, S 512, bf16, h0
-    zeros)."""
+    nh 48, hd 64, ds 128, chunk 256), each case asserted by the counters
+    to run the kernel it should (bf16: tensor cores; f32: FMA), timed; the
+    main case against the split emulation, and a profiler window over it.
+    Returns the
+    kernels-line numbers of the largest prefill the serving runs (B 1, S
+    512, bf16, h0 zeros)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.kernels import ssd_scan as K3
     # ------------------------------------------- 8. K3 vs plain, on card --
     nh, hd, ds, chunk = (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
@@ -865,13 +972,54 @@ def phase8_k3(dev, cfg):
     cases += [(1, 300, torch.bfloat16, "random"),
               (2, 512, torch.bfloat16, "random"),
               (1, 300, torch.float32, "random")]
-    rows = {}
+    rows, inputs = {}, {}
     for i, (B, S, dtype, h0) in enumerate(cases):
         args = k3_inputs(B, S, nh, hd, ds, dtype, h0, seed=31 + i, dev=dev)
-        rows[(B, S, dtype, h0)] = check_k3(K3, args, chunk,
-                                           label=f"case {i}")
+        path = "tc" if dtype == torch.bfloat16 else "f32"
+        route = K3._k3_path(args[0], args[3], args[4])
+        if route != path:
+            raise AssertionError(f"K3 case {i} routes to {route}, not {path}")
+        rows[(B, S, dtype, h0)] = check_k3(K3, args, chunk, f"case {i}", path)
+        inputs[(B, S, dtype, h0)] = args
+    main_args = inputs[(1, 512, torch.bfloat16, "zeros")]
+    # the main case against the kernel's arithmetic emulated in torch, and
+    # that emulation against the witness: a kernel fault shows as a gap to
+    # its emulation, the split's own error as the emulation's gap
+    y, hT = K3.ssd_scan(*main_args[:5], chunk, h0=main_args[5])
+    ye, he = ssd_split_emulation(*main_args[:5], chunk, h0=main_args[5])
+    yw, hw = ssd_f64_witness(*main_args[:5], chunk, h0=main_args[5])
+    log(f"K3 B 1 S 512 vs its split emulation: max_abs_err "
+        f"y={(y - ye).abs().max().item():.3e} "
+        f"hT={(hT - he).abs().max().item():.3e}; the emulation vs the f64 "
+        f"witness y={(ye - yw).abs().max().item():.3e} "
+        f"hT={(he - hw).abs().max().item():.3e}")
+
+    # device time of each K3 kernel at the main case, from the profiler
+    n_calls = 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            K3.ssd_scan(*main_args[:5], chunk, h0=main_args[5])
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    k3_us = 0.0
+    for key, us, count in device_rows(prof):
+        if "ssd_" in key:
+            name = key[key.index("ssd_"):].split("(")[0].split("<")[0]
+            k3_us += us
+            log(f"K3 profile, B 1 S 512: {name}: {us / count:.2f} us per "
+                f"launch, {count / n_calls:.0f} launch(es) per call")
+    log(f"K3 profile, B 1 S 512: {n_calls} calls, device {k3_us / n_calls:.2f}"
+        f" us per call, host wall {window * 1e6 / n_calls:.2f} us per call "
+        f"(no flush between calls); chunk-scan CTAs "
+        f"{-(-512 // chunk) * -(-min(chunk, 512) // 64) * nh} (64-row "
+        f"tiles x chunks x heads, one head each) on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     main = rows[(1, 512, torch.bfloat16, "zeros")]
-    return dict(main, shape=f"B 1 S 512 nh {nh} hd {hd} ds {ds} c {chunk} "
+    return dict(main, device_us_per_call=k3_us / n_calls,
+                shape=f"B 1 S 512 nh {nh} hd {hd} ds {ds} c {chunk} "
                 "bf16 xs/Bt/Ct, f32 dt, h0 zeros (one layer's prefill)")
 
 
@@ -911,13 +1059,14 @@ def phase9_mamba2(dev, cfg):
             for i in range(16)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K3.LAUNCHES = K3.PLAIN_CALLS = 0
+    K3.LAUNCHES = K3.LAUNCHES_TC = K3.LAUNCHES_F32 = K3.PLAIN_CALLS = 0
     K.LAUNCHES = K.PLAIN_CALLS = 0
     t0 = time.perf_counter()
     m = eng.run_trace(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_calls = K3.LAUNCHES, K3.PLAIN_CALLS
+    by_kernel = (K3.LAUNCHES_TC, K3.LAUNCHES_F32)
     k1_calls = K.LAUNCHES + K.PLAIN_CALLS
     peak = torch.cuda.max_memory_allocated()
     log(f"mamba2 serve: {len(reqs)} requests, prompts "
@@ -939,12 +1088,36 @@ def phase9_mamba2(dev, cfg):
         f"{tree_bytes(params['embed']) / 1e9:.3f} GB, + 2 x state "
         f"{state_bytes / 1e9:.3f} GB) / 3.35 TB/s")
     log(f"mamba2 serve: K3 launches={launches} ({cfg.num_layers} x "
-        f"{m.prefills} prefills = {cfg.num_layers * m.prefills}), plain "
+        f"{m.prefills} prefills = {cfg.num_layers * m.prefills}; tensor-core "
+        f"kernel {by_kernel[0]}, FMA kernel {by_kernel[1]}), plain "
         f"calls={plain_calls}, K1 calls={k1_calls}")
     if not all(r.phase.value == "done" and r.generated == 32 for r in reqs):
         raise AssertionError("not every mamba2 request finished")
-    if launches != cfg.num_layers * m.prefills or plain_calls or k1_calls:
-        raise AssertionError("mamba2 prefill did not run through K3")
+    if launches != cfg.num_layers * m.prefills or plain_calls or k1_calls \
+            or by_kernel != (launches, 0):
+        raise AssertionError("mamba2 prefill did not run through K3's "
+                             "tensor-core kernel")
+
+    # device time of one admission's prefill (1 x 300 tokens), by kernel
+    one = torch.randint(0, cfg.vocab_size, (1, 300), device=dev,
+                        generator=torch.Generator(dev).manual_seed(6))
+    cache1 = MD.init_cache(cfg, 1, 1024, device=dev)
+    MD.prefill(params, cfg, {"tokens": one}, cache1, use_kernels=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MD.prefill(params, cfg, {"tokens": one}, cache1, use_kernels=True)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_us = sum(r[1] for r in rows)
+    k3_us = sum(r[1] for r in rows if "ssd_" in r[0])
+    log(f"mamba2 prefill of 1 x 300 tokens, profiled: wall "
+        f"{window * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, of "
+        f"which K3's kernels {k3_us / 1e3:.3f} ms "
+        f"({sum(r[2] for r in rows if 'ssd_' in r[0])} launches)")
+    del cache1
 
     # one batch of prompts prefilled with K3, with the plain f32 scan and
     # with the scan in float64 (the witness: `ssd_chunked`, the plain
@@ -980,17 +1153,21 @@ def phase9_mamba2(dev, cfg):
     run(True)                                             # warm
     kern, plain = run(True), run(False)
     wit = run(False, ssd_f64_witness)
+    emu = run(False, ssd_split_emulation)
     lw = wit[0]
     top2 = lw.topk(2, dim=-1).values
     margins = [round(v, 4) for v in (top2[:, 0] - top2[:, 1]).tolist()]
     log(f"mamba2 prefill of 4 x 300 tokens: with K3 {kern[2]:.3f} ms, "
-        f"plain {plain[2]:.3f} ms, f64 witness {wit[2]:.3f} ms; max |logit| "
+        f"plain {plain[2]:.3f} ms, f64 witness {wit[2]:.3f} ms, split "
+        f"emulation {emu[2]:.3f} ms; max |logit| "
         f"{lw.abs().max().item():.3f}, witness top-1 minus top-2 logit "
         f"{margins}")
     got = gap(kern, wit)
     for name, (dl, agree, h0_rel, h_rel) in (
             ("K3 vs f64 witness", got),
             ("plain f32 vs f64 witness", gap(plain, wit)),
+            ("split emulation vs f64 witness", gap(emu, wit)),
+            ("K3 vs split emulation", gap(kern, emu)),
             ("K3 vs plain f32", gap(kern, plain))):
         log(f"mamba2 prefill {name}: max_abs_logit_diff={dl:.4f} "
             f"greedy_agreement={agree} h_rel_err layer 0={h0_rel:.3e} "

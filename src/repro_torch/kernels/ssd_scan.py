@@ -18,6 +18,14 @@ c = min(chunk, S); a ragged last chunk is padded with dt = 0 (no state
 update, decay 1), so hT is exact. The kernel reads xs, Bt and Ct through
 their strides (slices of the conv output need no copy) and takes any c up
 to `MAX_CHUNK`.
+
+`_k3_path` picks the kernel before the launch: bf16 xs/Bt/Ct whose rows
+16-byte copies can read (base addresses and strides in multiples of 16
+bytes, as slices of the conv output are) go to the chunk-parallel
+tensor-core kernel (three launches: chunk states, state passing, chunk
+scan); f32 inputs and other bf16 rows to the FMA kernel. Each call counts once in
+`LAUNCHES` and once in its kernel's counter (`LAUNCHES_TC`,
+`LAUNCHES_F32`). A kernel that fails raises: no other kernel is tried.
 """
 
 from __future__ import annotations
@@ -31,15 +39,39 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-# Counts of kernel launches and of plain-version calls made by the wrapper,
-# so that a run can show which path it took. Reset by assigning 0.
+# Counts of kernel calls (in all, and by kernel) and of plain-version calls
+# made by the wrapper, so that a run can show which path it took. Reset by
+# assigning 0.
 LAUNCHES = 0
+LAUNCHES_TC = 0
+LAUNCHES_F32 = 0
 PLAIN_CALLS = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64
 MAX_STATE = 128
 MAX_CHUNK = 2048
+
+
+def _strides(xs, Bt, Ct):
+    """The strides the kernels read xs (batch, row, head), Bt and Ct (batch,
+    row) through, in elements."""
+    return (xs.stride(0), xs.stride(1), xs.stride(2), Bt.stride(0),
+            Bt.stride(1), Ct.stride(0), Ct.stride(1))
+
+
+def _k3_path(xs, Bt, Ct) -> str:
+    """The kernel a CUDA call launches: "tc" (bf16 on tensor cores, its
+    tiles copied 16 bytes at a time: every stride of xs/Bt/Ct a multiple
+    of 8 elements and every base address of 16 bytes) or "f32" (the FMA
+    kernel: f32 inputs, or bf16 rows those copies cannot read). Both take
+    any hd <= MAX_HEAD_DIM and ds <= MAX_STATE (tiles are zero-filled up
+    to them); the wrapper refuses larger ones."""
+    if xs.dtype != torch.bfloat16 or \
+            any(s % 8 for s in _strides(xs, Bt, Ct)) or \
+            any(t.data_ptr() % 16 for t in (xs, Bt, Ct)):
+        return "f32"
+    return "tc"
 
 
 @functools.cache
@@ -49,6 +81,13 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
         [ctypes.c_longlong] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.repro_ssd_scan_tc
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + \
+        [ctypes.c_longlong] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.repro_ssd_scan_tc_scratch_bytes
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
     lib.repro_ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.repro_ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -127,10 +166,10 @@ def _refuse_grad(*tensors):
 
 def ssd_scan(xs, dt, A, Bt, Ct, chunk: int,
              h0: Optional[torch.Tensor] = None):
-    """Returns (y, hT), both f32. CUDA tensors go through the kernel (errors
-    raise), CPU tensors through the plain version; a gradient is refused on
-    either."""
-    global LAUNCHES, PLAIN_CALLS
+    """Returns (y, hT), both f32. CUDA tensors go through the kernel
+    `_k3_path` names (errors raise), CPU tensors through the plain version;
+    a gradient is refused on either."""
+    global LAUNCHES, LAUNCHES_TC, LAUNCHES_F32, PLAIN_CALLS
     _refuse_grad(xs, dt, A, Bt, Ct, h0)
     _check(xs, dt, A, Bt, Ct, h0)
     if xs.device.type == "cpu":
@@ -157,19 +196,35 @@ def ssd_scan(xs, dt, A, Bt, Ct, chunk: int,
         raise ValueError(f"the kernel takes hd <= {MAX_HEAD_DIM}, ds <= "
                          f"{MAX_STATE} and chunk <= {MAX_CHUNK}, got hd {hd}, "
                          f"ds {ds}, chunk {c}")
-    y = torch.empty((B, S, nh, hd), dtype=torch.float32, device=xs.device)
-    hT = torch.empty((B, nh, hd, ds), dtype=torch.float32, device=xs.device)
+    dev = xs.device
+    strides = _strides(xs, Bt, Ct)
+    path = _k3_path(xs, Bt, Ct)
+    y = torch.empty((B, S, nh, hd), dtype=torch.float32, device=dev)
+    hT = torch.empty((B, nh, hd, ds), dtype=torch.float32, device=dev)
     lib = _lib()
-    with torch.cuda.device(xs.device):
-        err = lib.repro_ssd_scan(
-            xs.data_ptr(), dt.data_ptr(), A.data_ptr(), Bt.data_ptr(),
-            Ct.data_ptr(), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), hT.data_ptr(), _DTYPES[xs.dtype], B, S, nh, hd, ds,
-            c, xs.stride(0), xs.stride(1), xs.stride(2), Bt.stride(0),
-            Bt.stride(1), Ct.stride(0), Ct.stride(1),
-            torch.cuda.current_stream().cuda_stream)
+    common = (xs.data_ptr(), dt.data_ptr(), A.data_ptr(), Bt.data_ptr(),
+              Ct.data_ptr(), None if h0 is None else h0.data_ptr(),
+              y.data_ptr(), hT.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if path == "tc":
+            # the chunk states, entering states, cumsums and decays passed
+            # between the three kernels (the layout is the C side's)
+            scratch = torch.empty(
+                lib.repro_ssd_scan_tc_scratch_bytes(B, S, nh, hd, ds, c),
+                dtype=torch.uint8, device=dev)
+            err = lib.repro_ssd_scan_tc(
+                *common, scratch.data_ptr(), B, S, nh, hd, ds, c, *strides,
+                stream)
+        else:
+            err = lib.repro_ssd_scan(*common, _DTYPES[xs.dtype], B, S, nh, hd,
+                                     ds, c, *strides, stream)
     if err:
         raise RuntimeError("ssd_scan launch failed: "
                            + lib.repro_ssd_scan_error_string(err).decode())
     LAUNCHES += 1
+    if path == "tc":
+        LAUNCHES_TC += 1
+    else:
+        LAUNCHES_F32 += 1
     return y, hT

@@ -5,10 +5,12 @@ the wgmma kernel at tile edges, ranks 8-64, more tiles than SMs and
 scales that are not a power of two, or 0; the WMMA kernel at ragged
 shapes, the f32 kernel; forward, the transposed-W dx form, and the
 autograd Function's backward; which kernel each shape took, by the
-counters) and the SSD scan kernel (K3: ragged chunks, an initial
-state, bf16 inputs read through the strides of the conv output) against
-their plain torch versions, a decode step through K1 against the dense
-oracle, and an SSM prefill through K3 against the plain scan. Each skips
+counters) and the SSD scan kernels (K3: the chunk-parallel tensor-core
+kernel and the FMA kernel, which one each case took by the counters; ragged chunks, an initial state, bf16 inputs read
+through the strides of the conv output) against their plain torch
+versions, a decode step through K1 against the dense oracle, mamba2's
+512-token prefill through K3 against an f64 recurrence, and an SSM
+prefill through K3 against the plain scan. Each skips
 with a reason where no CUDA device is present. This file
 imports no JAX (the machine with the card has none), so run it there with
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -263,15 +265,28 @@ def test_k2_function_backward_matches_autograd_of_plain(dtype):
 
 
 # ------------------------------------------------------------------ K3 ----
-# B, S, nh, hd, ds, chunk, h0, dtype
+# B, S, nh, hd, ds, chunk, h0, dtype, the kernel `_k3_path` picks
 K3_CASES = [
-    (2, 32, 8, 16, 32, 8, False, torch.float32),     # test_kernels.py shapes
-    (1, 50, 4, 8, 16, 16, False, torch.float32),     # ragged tail chunk
-    (2, 64, 16, 32, 64, 32, True, torch.float32),
-    (2, 71, 4, 16, 16, 256, True, torch.float32),    # c = S = 71
-    (1, 300, 3, 64, 128, 256, True, torch.bfloat16),  # mamba2 head, 2 chunks
-    (2, 200, 2, 40, 100, 130, False, torch.bfloat16),  # hd/ds below the tile
-    (1, 129, 2, 64, 128, 129, True, torch.float32),  # 3 row tiles, 1 ragged
+    (2, 32, 8, 16, 32, 8, False, torch.float32, "f32"),  # test_kernels.py
+    (1, 50, 4, 8, 16, 16, False, torch.float32, "f32"),  # ragged tail chunk
+    (2, 64, 16, 32, 64, 32, True, torch.float32, "f32"),
+    (2, 71, 4, 16, 16, 256, True, torch.float32, "f32"),  # c = S = 71
+    (1, 300, 3, 64, 128, 256, True, torch.bfloat16, "tc"),  # 2 chunks
+    # hd/ds below the tile; Ct starts 360 bytes into the conv row, which
+    # 16-byte copies cannot read: the FMA kernel
+    (2, 200, 2, 40, 100, 130, False, torch.bfloat16, "f32"),
+    (1, 129, 2, 64, 128, 129, True, torch.float32, "f32"),  # 3 row tiles
+    # the tensor-core kernel: one chunk; four chunks; chunks of 64 and 128;
+    # B 2 with random h0; below the tile with a ragged 130-row chunk; 3 row
+    # tiles, one ragged; 3 heads of 16
+    (1, 64, 48, 64, 128, 256, False, torch.bfloat16, "tc"),
+    (1, 1024, 48, 64, 128, 256, True, torch.bfloat16, "tc"),
+    (2, 300, 8, 64, 128, 64, True, torch.bfloat16, "tc"),
+    (1, 300, 8, 64, 128, 128, False, torch.bfloat16, "tc"),
+    (2, 512, 48, 64, 128, 256, True, torch.bfloat16, "tc"),
+    (2, 200, 4, 32, 64, 130, True, torch.bfloat16, "tc"),
+    (1, 129, 2, 64, 128, 129, True, torch.bfloat16, "tc"),
+    (2, 50, 3, 16, 32, 16, True, torch.bfloat16, "tc"),
 ]
 
 
@@ -291,20 +306,72 @@ def _k3_inputs(B, S, nh, hd, ds, h0, dtype, device, seed=0):
     return xs, dt, A, Bt, Ct, (t(B, nh, hd, ds, scale=0.2) if h0 else None)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,h0,dtype", K3_CASES)
-def test_k3_kernel_matches_plain(B, S, nh, hd, ds, chunk, h0, dtype):
-    xs, dt, A, Bt, Ct, h = _k3_inputs(B, S, nh, hd, ds, h0, dtype, _card())
-    assert not xs.is_contiguous()
-    before = K3.LAUNCHES
+def _k3_counts():
+    return {name: getattr(K3, name) for name in
+            ("LAUNCHES", "LAUNCHES_TC", "LAUNCHES_F32")}
+
+
+def _k3_call(xs, dt, A, Bt, Ct, chunk, h, path):
+    """One K3 call on the card, asserting by the counters that it ran the
+    kernel `path` names, once."""
+    assert K3._k3_path(xs, Bt, Ct) == path
+    before = _k3_counts()
     y, hT = K3.ssd_scan(xs, dt, A, Bt, Ct, chunk, h0=h)
     torch.cuda.synchronize()
-    assert K3.LAUNCHES == before + 1
-    yr, hr = K3.ssd_scan_plain(xs, dt, A, Bt, Ct, chunk, h0=h)
+    after = _k3_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "LAUNCHES": 1, "LAUNCHES_TC": int(path == "tc"),
+        "LAUNCHES_F32": int(path == "f32")}
     assert y.dtype == hT.dtype == torch.float32
-    # test_kernels.py's 2e-3: another order of the same f32 sums
+    return y, hT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,h0,dtype,path", K3_CASES)
+def test_k3_kernel_matches_plain(B, S, nh, hd, ds, chunk, h0, dtype, path):
+    xs, dt, A, Bt, Ct, h = _k3_inputs(B, S, nh, hd, ds, h0, dtype, _card())
+    assert not xs.is_contiguous()
+    y, hT = _k3_call(xs, dt, A, Bt, Ct, chunk, h, path)
+    yr, hr = K3.ssd_scan_plain(xs, dt, A, Bt, Ct, chunk, h0=h)
+    # test_kernels.py's 2e-3: another order of the same f32 sums (and, on
+    # the tensor-core kernel, f32 operands as bf16 hi + lo, ~2^-17)
     torch.testing.assert_close(y, yr, atol=2e-3, rtol=2e-3)
     torch.testing.assert_close(hT, hr, atol=2e-3, rtol=2e-3)
+
+
+def _f64_witness(xs, dt, A, Bt, Ct, h0=None):
+    """The SSD recurrence token by token in float64: no cumsum, no chunks."""
+    B, S, nh, hd = xs.shape
+    x, d, b, c = xs.double(), dt.double(), Bt.double(), Ct.double()
+    a = torch.exp(d * A.double())
+    h = torch.zeros((B, nh, hd, Bt.shape[-1]), dtype=torch.float64,
+                    device=xs.device) if h0 is None else h0.double()
+    ys = []
+    for t in range(S):
+        h = a[:, t, :, None, None] * h + \
+            (d[:, t, :, None] * x[:, t])[..., None] * b[:, t, None, None, :]
+        ys.append(torch.einsum("bs,bhps->bhp", c[:, t], h))
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.gpu
+def test_k3_full_width_matches_f64_witness():
+    """mamba2-780m's prefill of 512 tokens (nh 48, hd 64, ds 128, c 256),
+    bf16 slices of silu outputs and the model's A, on the tensor-core
+    kernel, within K3's 2e-3 of the f64 recurrence."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    conv = torch.nn.functional.silu(torch.randn(
+        (1, 512, 48 * 64 + 256), generator=g, device=dev)).to(torch.bfloat16)
+    xs = conv[..., :3072].reshape(1, 512, 48, 64)
+    Bt, Ct = conv[..., 3072:3200], conv[..., 3200:]
+    dt = torch.nn.functional.softplus(torch.randn((1, 512, 48), generator=g,
+                                                  device=dev))
+    A = -torch.linspace(1.0, 16.0, 48, device=dev)
+    y, hT = _k3_call(xs, dt, A, Bt, Ct, 256, None, "tc")
+    yw, hw = _f64_witness(xs, dt, A, Bt, Ct)
+    torch.testing.assert_close(y.double(), yw, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(hT.double(), hw, atol=2e-3, rtol=2e-3)
 
 
 @pytest.mark.gpu
@@ -325,10 +392,13 @@ def test_ssm_prefill_through_k3_matches_plain():
     out = {}
     for use_kernels in (False, True):
         cache = MD.init_cache(cfg, 2, 64, device=dev)
-        before = K3.LAUNCHES
+        before = _k3_counts()
         logits, cache = MD.prefill(params, cfg, {"tokens": toks}, cache,
                                    use_kernels=use_kernels)
-        assert K3.LAUNCHES - before == (cfg.num_layers if use_kernels else 0)
+        # f32 weights give f32 conv outputs: every layer on the FMA kernel
+        n = cfg.num_layers if use_kernels else 0
+        assert {k: v - before[k] for k, v in _k3_counts().items()} == {
+            "LAUNCHES": n, "LAUNCHES_TC": 0, "LAUNCHES_F32": n}
         out[use_kernels] = (logits, cache["scan"]["h"])
     torch.testing.assert_close(out[True][0], out[False][0], atol=2e-3,
                                rtol=2e-3)
