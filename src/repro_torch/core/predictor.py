@@ -8,7 +8,7 @@ Stage 2 — co-located decode latency (Eq. 3):
 The port's own copy of `repro/core/predictor.py` (plain numpy; keep the
 two in step), without `fit_from_costmodel`: that method profiles the TPU
 cost model (`repro/core/costmodel.py`, `repro/hw.py`), which waits for an
-H100 chip spec (ROADMAP item 10). The port fits the predictor from rounds
+H100 chip spec (ROADMAP.md §1 item 4). The port fits the predictor from rounds
 measured on the card instead (`core/colocation.py::profile_rounds`, the
 paper's offline profiling of §8.8 against the real engine).
 """

@@ -61,6 +61,24 @@ constexpr int kMaxSplits = 64;
 constexpr int kCombineThreads = 128;
 constexpr float kNegInf = -1e30f;
 
+// The dynamic shared memory `kernel` may take, raised once per device to
+// the most any call asked for (`granted` holds it, by device). The
+// attribute call is host work: made per launch it would come with every
+// call, and with every launch captured into a CUDA graph.
+constexpr int kMaxDevices = 64;
+cudaError_t opt_in_smem(const void* kernel, size_t bytes, int* granted) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (granted[dev] >= static_cast<int>(bytes)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) granted[dev] = static_cast<int>(bytes);
+  return err;
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -345,13 +363,10 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const void* 
   const size_t smem = 4 * static_cast<size_t>(kTile) * (hd * sizeof(T) + 16) +
                       sizeof(float) * (static_cast<size_t>(g) * hd + g * kTile + 3 * g) +
                       sizeof(int) * 2 * kTile;
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(paged_decode_split_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  static int granted[kMaxDevices] = {};  // one per T
+  cudaError_t err = opt_in_smem(reinterpret_cast<const void*>(paged_decode_split_kernel<T>),
+                                smem, granted);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(kv_heads, batch, n_splits);
   paged_decode_split_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),

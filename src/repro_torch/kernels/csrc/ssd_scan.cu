@@ -82,6 +82,24 @@ constexpr int kDS = 128;         // largest state dim
 constexpr int kT = 64;           // rows per i / j tile
 constexpr int kMaxChunk = 2048;
 
+// The dynamic shared memory `kernel` may take, raised once per device to
+// the most any call asked for (`granted` holds it, by device). The
+// attribute call is host work: made per launch it would come with every
+// call, and with every launch captured into a CUDA graph.
+constexpr int kMaxDevices = 64;
+cudaError_t opt_in_smem(const void* kernel, size_t bytes, int* granted) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (granted[dev] >= static_cast<int>(bytes)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) granted[dev] = static_cast<int>(bytes);
+  return err;
+}
+
 // cum[i] = sum_{r <= i} dts[r] * a over i < cpad, in double: a block scan of
 // NT threads in segments of NT (warp shuffles, then the warp totals).
 template <int NT>
@@ -313,9 +331,9 @@ cudaError_t launch(const void* xs, const void* dt, const void* A, const void* Bt
                    long long b_st, long long c_sb, long long c_st, cudaStream_t stream) {
   const int cpad = (c + kT - 1) / kT * kT;
   const size_t smem = smem_bytes(cpad);
-  cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  static int granted[kMaxDevices] = {};  // one per T
+  cudaError_t err =
+      opt_in_smem(reinterpret_cast<const void*>(ssd_scan_kernel<T>), smem, granted);
   if (err != cudaSuccess) return err;
   const dim3 grid(nh, B);
   ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(
@@ -865,8 +883,9 @@ extern "C" int repro_ssd_scan_tc(const void* xs, const void* dt, const void* A, 
   const bf16* ct = static_cast<const bf16*>(Ct);
 
   const size_t smem1 = state_smem_bytes(cpad);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem1));
+  static int granted1[kMaxDevices] = {}, granted3[kMaxDevices] = {};
+  cudaError_t err =
+      opt_in_smem(reinterpret_cast<const void*>(ssd_chunk_state_kernel), smem1, granted1);
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_chunk_state_kernel<<<dim3(n_chunks * ((ds + kT - 1) / kT), nh, B), kTC, smem1, s>>>(
       x, static_cast<const float*>(dt), static_cast<const float*>(A), bt, sc, S, nh, hd, ds, c,
@@ -878,8 +897,7 @@ extern "C" int repro_ssd_scan_tc(const void* xs, const void* dt, const void* A, 
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   const size_t smem3 = scan_smem_bytes(cpad);
-  err = cudaFuncSetAttribute(ssd_chunk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem3));
+  err = opt_in_smem(reinterpret_cast<const void*>(ssd_chunk_scan_kernel), smem3, granted3);
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_chunk_scan_kernel<<<dim3(static_cast<unsigned>(scan_ctas)), kTC, smem3, s>>>(
       x, bt, ct, sc, static_cast<float*>(y), B, S, nh, hd, ds, c, cpad, n_chunks, h0 != nullptr,

@@ -35,6 +35,9 @@ from repro_torch.kernels import build
 # so that a run can show which path it took. Reset by assigning 0.
 LAUNCHES = 0
 PLAIN_CALLS = 0
+# A CUDA graph that captured calls adds their launches to these at every
+# replay (`core/graphs.py`).
+COUNTERS = ("LAUNCHES", "PLAIN_CALLS")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_TOKENS = 64       # positions per split: one page of the serving cache
@@ -142,6 +145,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
                          f"{H // KV} * {hd}")
     n_pages = page_table.shape[1]
     n_splits, split_tokens = _k1_splits(n_pages, ptok)
+    # inside a CUDA graph both come from the graph's pool: their addresses
+    # are fixed at capture, and the memory is scratch of one replay
     out = torch.empty_like(q)
     work = torch.empty(n_splits * B * H * (hd + 2), dtype=torch.float32,
                        device=q.device)

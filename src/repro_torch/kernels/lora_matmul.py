@@ -44,6 +44,10 @@ LAUNCHES_WGMMA = 0
 LAUNCHES_WMMA = 0
 LAUNCHES_F32 = 0
 PLAIN_CALLS = 0
+# A CUDA graph that captured calls adds their launches to these at every
+# replay (`core/graphs.py`).
+COUNTERS = ("LAUNCHES", "LAUNCHES_WGMMA", "LAUNCHES_WMMA", "LAUNCHES_F32",
+            "PLAIN_CALLS")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RANK = 64

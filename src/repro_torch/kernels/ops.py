@@ -34,15 +34,19 @@ def decode_attention(q, kc, vc, kv_pos, positions, window: int = 0,
     is in the cache's dtype, as `decode_attn_ref`'s is."""
     if window > 0:
         raise NotImplementedError(
-            "windowed (SWA) caches are not ported yet (ROADMAP item 9.1)")
+            "windowed (SWA) caches are not ported yet (ROADMAP.md §1 item "
+            "5.1)")
     if scales is not None and scales[0] is not None:
         raise NotImplementedError(
-            "int8 KV caches (kv_quant) are not ported yet (ROADMAP item 3)")
+            "int8 KV caches (kv_quant) are not ported yet (ROADMAP.md §1 "
+            "item 5.7)")
     B, S, KV, hd = kc.shape
     ptok = page_tokens if S % page_tokens == 0 else S
     n_pages = S // ptok
     k_pages = kc.reshape(B * n_pages, ptok, KV, hd)
     v_pages = vc.reshape(B * n_pages, ptok, KV, hd)
+    # a new table each call (one small launch); inside a CUDA graph it
+    # comes from the graph's pool, like K1's workspace
     page_table = torch.arange(B * n_pages, dtype=torch.int32,
                               device=kc.device).reshape(B, n_pages)
     lengths = (positions + 1).to(torch.int32)

@@ -46,6 +46,9 @@ LAUNCHES = 0
 LAUNCHES_TC = 0
 LAUNCHES_F32 = 0
 PLAIN_CALLS = 0
+# A CUDA graph that captured calls adds their launches to these at every
+# replay (`core/graphs.py`).
+COUNTERS = ("LAUNCHES", "LAUNCHES_TC", "LAUNCHES_F32", "PLAIN_CALLS")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64

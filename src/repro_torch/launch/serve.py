@@ -8,14 +8,16 @@ model, sharing its weights), as many as the QoS scheduler allows under
 on the device it runs on before serving starts (k = 0 rounds for
 the solo stage, k > 0 rounds for the co-located stage), not from the TPU
 cost model the reference uses. Runs on `cuda` unless `--device cpu` is
-given.
+given. On the card the rounds replay CUDA graphs, captured before serving
+(the capture time and the memory it took are printed); on the CPU they
+run eagerly.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --requests 12 --use-kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --colocate --use-kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
-      --smoke --device cpu --use-kernels
+      --smoke --device cpu --colocate --use-kernels
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core import graphs as G
 from repro_torch.core.colocation import (ColocatedRunner, fit_predictor,
                                          profile_rounds, run_colocated_trace)
 from repro_torch.core.scheduler import QoSScheduler, SchedulerConfig
@@ -37,6 +40,15 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.request import Request
 from repro_torch.training import peft as P
 from repro_torch.training.data import DataConfig, Prefetcher, SyntheticCorpus
+
+
+def captured(precompile, device) -> None:
+    """Run a `precompile` (CUDA graph capture) and print its time and
+    memory (`graphs.measured`)."""
+    secs, alloc, reserved = G.measured(precompile, device)
+    print(f"captured CUDA graphs in {secs:.1f}s: allocated "
+          f"+{alloc / 1e6:.1f} MB, reserved +{reserved / 1e6:.1f} MB "
+          f"(graph pool)")
 
 
 def main(argv=None):
@@ -68,6 +80,8 @@ def main(argv=None):
             for i in range(args.requests)]
 
     if not args.colocate:
+        if eng.graphs:
+            captured(eng.precompile, device)
         t0 = time.time()
         m = eng.run_trace(reqs, max_rounds=3000)
         if device.type == "cuda":
@@ -89,6 +103,8 @@ def main(argv=None):
     ft_state = P.init_ft_state(cfg_ft, pc, params_ft, 2, pf.stacked())
     runner = ColocatedRunner(cfg, params, cfg_ft, params_ft, pc,
                              k_max=args.k_max, use_kernels=args.use_kernels)
+    if runner.graphs:
+        captured(lambda: runner.precompile(eng.cache, ft_state), device)
     t0 = time.time()
     solo, colo, ft_state = profile_rounds(
         runner, eng.cache, ft_state,

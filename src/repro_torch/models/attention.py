@@ -124,7 +124,8 @@ def decode_attn_ref(q, kc, vc, kv_pos, positions, window: int = 0,
     output is in the cache dtype."""
     if scales is not None and scales[0] is not None:
         raise NotImplementedError(
-            "int8 KV caches (kv_quant) are not ported yet (ROADMAP item 3)")
+            "int8 KV caches (kv_quant) are not ported yet (ROADMAP.md §1 "
+            "item 5.7)")
     B, H, hd = q.shape
     KV = kc.shape[2]
     g = H // KV

@@ -183,8 +183,11 @@ def chunked_softmax_xent(x, table, labels, mask=None, chunk: int = 256):
     Never holds (B, S, V): each chunk computes its logits, LSE and gold
     score, and is recomputed in the backward pass (`torch.utils.checkpoint`,
     the reference's `jax.checkpoint`), so autograd keeps no chunk's f32
-    logits. x: (B, S, d) final hidden states (normed, shifted); labels:
-    (B, S) aligned with x. Returns the masked mean."""
+    logits. Nothing here draws random numbers, so the checkpoint keeps no
+    RNG state: reading or setting the card's generator is refused while a
+    CUDA graph captures (the HEAD unit's graph). x: (B, S, d) final hidden
+    states (normed, shifted); labels: (B, S) aligned with x. Returns the
+    masked mean."""
     B, S, _ = x.shape
     c = min(chunk, S)
     if mask is None:
@@ -195,7 +198,7 @@ def chunked_softmax_xent(x, table, labels, mask=None, chunk: int = 256):
         sl = slice(s0, s0 + c)
         tot = tot + checkpoint(_xent_chunk_sum, x[:, sl], table,
                                labels[:, sl], mask[:, sl],
-                               use_reentrant=False)
+                               use_reentrant=False, preserve_rng_state=False)
     return tot / torch.clamp(mask.sum(), min=1.0)
 
 

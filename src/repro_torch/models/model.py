@@ -42,15 +42,15 @@ Params = Dict[str, Any]
 
 # (predicate, what, ROADMAP item) for configurations not ported yet
 _UNPORTED = (
-    (lambda c: c.mla, "MLA attention", "9.3"),
-    (lambda c: c.moe, "MoE layers", "9.2"),
-    (lambda c: c.family == "hybrid", "the hybrid RG-LRU family", "9.5"),
+    (lambda c: c.mla, "MLA attention", "5.3"),
+    (lambda c: c.moe, "MoE layers", "5.2"),
+    (lambda c: c.family == "hybrid", "the hybrid RG-LRU family", "5.4"),
     (lambda c: c.enc_layers or c.cross_attention or
-     c.family in ("encdec", "audio"), "the encoder-decoder family", "9.6"),
+     c.family in ("encdec", "audio"), "the encoder-decoder family", "5.5"),
     (lambda c: c.frontend != "none" or c.family == "vlm",
-     "the vision-stub frontend", "9.7"),
-    (lambda c: c.attn_type == "swa", "sliding-window attention", "9.1"),
-    (lambda c: c.kv_quant, "int8 KV caches (kv_quant)", "3"),
+     "the vision-stub frontend", "5.6"),
+    (lambda c: c.attn_type == "swa", "sliding-window attention", "5.1"),
+    (lambda c: c.kv_quant, "int8 KV caches (kv_quant)", "5.7"),
 )
 
 
@@ -59,7 +59,7 @@ def _require_ported(cfg: ModelConfig) -> None:
         if pred(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: {what} is not ported to PyTorch yet "
-                f"(ROADMAP.md, modules still to port, item {item})")
+                f"(ROADMAP.md §1, modules still to port, item {item})")
 
 
 def _plan(cfg: ModelConfig):
@@ -183,7 +183,8 @@ def apply_layer(lp: Params, x, positions, cfg: ModelConfig, kind: str, *,
         return x + _parallel_lora(h, out, lora, "ssm_io", scale), cache
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
-                                  "(ROADMAP.md, modules still to port, item 9)")
+                                  "(ROADMAP.md §1, modules still to port, "
+                                  "item 5)")
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mode == "decode":
         attn_out, cache = A.attn_decode(
@@ -285,7 +286,8 @@ def forward(params, cfg: ModelConfig, batch: Dict, *, adapters=None,
 
     for i in range(n):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(layer, x, i, use_reentrant=False)
+            x = checkpoint(layer, x, i, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = layer(x, i)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

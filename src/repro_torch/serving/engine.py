@@ -10,6 +10,16 @@ sides. Greedy argmax is taken on the device, with one host copy per round.
 `use_kernels` reaches prefill as well as decode (the reference engine
 passes it to decode only), so an SSM model's admissions run the SSD scan
 kernel. The slot insert copies every per-layer cache leaf, KV or SSM state.
+
+On the card the decode step is a CUDA graph (`DecodeGraph`), captured at
+the first round or by `precompile` (the reference jits it at its first
+call) and replayed every round: each round writes the tokens and
+positions into pinned host buffers, copies each to its static device
+buffer with one non-blocking copy, replays, and copies the greedy tokens
+back. `graphs=False` asks for eager rounds (the CPU has only those).
+Prefill stays eager: the reference's jitted prefill compiles once per
+prompt length, and a graph per length would capture at almost every
+admission. It writes the slot's cache in place, which the graph reads.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import graphs as G
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.kv_cache import PageTableManager, spec_for
@@ -42,13 +53,67 @@ class EngineMetrics:
     ft_units: int = 0          # finetune units run in co-located rounds
 
 
+class DecodeGraph:
+    """`decode_step` plus its greedy argmax over a fixed batch, captured
+    once on one cache. `tokens` and `positions` are the static inputs,
+    `logits` and `next_tokens` the static outputs, all allocated outside
+    the graph (`core/graphs.py`'s invariant). Capture warms the step up on
+    the cache and then puts the cache back as it was. `pool`: the memory
+    pool to capture into (a new one by default)."""
+
+    def __init__(self, params, cfg: ModelConfig, cache, *,
+                 use_kernels: bool = False, tokens=None, positions=None,
+                 pool=None):
+        some = next(iter(cache["scan"].values()))
+        slots, dev = some.shape[1], some.device
+        self.tokens = torch.zeros((slots,), dtype=torch.int32, device=dev) \
+            if tokens is None else tokens
+        self.positions = torch.zeros_like(self.tokens) \
+            if positions is None else positions
+        self.cache = cache
+        self._addresses = G.addresses(cache)
+
+        def step():
+            return MD.decode_step(params, cfg, self.tokens, self.positions,
+                                  cache, use_kernels=use_kernels)[0]
+
+        saved = G.snapshot(cache)
+        out = {}
+        G.on_side_stream(lambda: out.setdefault("logits", step()))
+        G.restore(saved)
+        del saved
+        self.logits = torch.empty_like(out.pop("logits"))
+        self.next_tokens = torch.zeros_like(self.tokens)
+
+        def body():
+            logits = step()
+            self.logits.copy_(logits)
+            self.next_tokens.copy_(logits.argmax(dim=-1))
+
+        self.graph = G.capture(body, pool or torch.cuda.graph_pool_handle())
+
+    def __call__(self, tokens, positions, cache):
+        """Replay on these inputs (copied into the static buffers unless
+        they are those). Returns the static `logits`, which the next
+        replay overwrites."""
+        if cache is not self.cache and \
+                G.addresses(cache) != self._addresses:
+            raise ValueError("the decode graph was captured on another cache")
+        if tokens is not self.tokens:
+            self.tokens.copy_(tokens)
+        if positions is not self.positions:
+            self.positions.copy_(positions)
+        self.graph.replay()
+        return self.logits
+
+
 class ServingEngine:
     """Slot-based continuous batching over a fixed decode batch."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 8,
                  s_max: int = 256, use_kernels: bool = False,
                  page_tokens: int = 16, num_pages: Optional[int] = None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, graphs: Optional[bool] = None):
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
@@ -65,6 +130,28 @@ class ServingEngine:
                                       max_slots, -(-s_max // page_tokens))
         self.slots: List[Optional[Request]] = [None] * max_slots
         self.last_token = np.zeros((max_slots,), np.int32)
+        # decode rounds replay a CUDA graph unless this is False (the
+        # default on the card; the CPU has no graphs, and True raises there)
+        self.graphs = G.resolve(graphs, self.device)
+        # the decode step's static inputs and their pinned host buffers
+        pin = self.device.type == "cuda"
+        self.tokens = torch.zeros((max_slots,), dtype=torch.int32,
+                                  device=self.device)
+        self.positions = torch.zeros_like(self.tokens)
+        self._tokens_host = torch.zeros((max_slots,), dtype=torch.int32,
+                                        pin_memory=pin)
+        self._positions_host = torch.zeros((max_slots,), dtype=torch.int32,
+                                           pin_memory=pin)
+        self._decode: Optional[DecodeGraph] = None
+
+    def precompile(self) -> None:
+        """Capture the decode step on this engine's cache (left as it was):
+        the reference's jit of `decode_step`, here a CUDA graph."""
+        G.resolve(True, self.device)
+        self._decode = DecodeGraph(self.params, self.cfg, self.cache,
+                                   use_kernels=self.use_kernels,
+                                   tokens=self.tokens,
+                                   positions=self.positions)
 
     # ------------------------------------------------------------- admit --
     def try_admit(self, req: Request, prompt_tokens: np.ndarray) -> bool:
@@ -104,26 +191,39 @@ class ServingEngine:
         """One decode step over all active slots. Returns {rid: token}.
 
         step(tokens, positions, cache) -> (logits, cache) replaces the
-        plain `decode_step` (the co-located runner passes its round). The
+        decode step (the co-located runner passes its round). Without it
+        the round replays the decode graph (captured at the first round),
+        or runs `decode_step` eagerly when `self.graphs` is False. The
         round's time ends with the device-to-host copy of its tokens, which
-        waits for everything the step queued on the stream."""
+        waits for everything the round queued on the stream (the host
+        buffers are rewritten only after it)."""
         active = [(i, r) for i, r in enumerate(self.slots)
                   if r is not None and r.phase == Phase.DECODING]
         if not active:
             return {}
         t0 = time.perf_counter()
-        tokens = torch.tensor(self.last_token, device=self.device)
-        positions = np.zeros((self.max_slots,), np.int32)
+        positions = self._positions_host.numpy()
+        positions[:] = 0
         for i, r in active:
             positions[i] = r.context_len  # index of the token being written
-        positions = torch.tensor(positions, device=self.device)
-        if step is None:
-            logits, self.cache = MD.decode_step(
-                self.params, self.cfg, tokens, positions, self.cache,
-                use_kernels=self.use_kernels)
+        np.copyto(self._tokens_host.numpy(), self.last_token)
+        self.tokens.copy_(self._tokens_host, non_blocking=True)
+        self.positions.copy_(self._positions_host, non_blocking=True)
+        if step is None and self.graphs:
+            if self._decode is None:
+                self.precompile()
+            self._decode(self.tokens, self.positions, self.cache)
+            next_tokens = self._decode.next_tokens
         else:
-            logits, self.cache = step(tokens, positions, self.cache)
-        next_tokens = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+            if step is None:
+                logits, self.cache = MD.decode_step(
+                    self.params, self.cfg, self.tokens, self.positions,
+                    self.cache, use_kernels=self.use_kernels)
+            else:
+                logits, self.cache = step(self.tokens, self.positions,
+                                          self.cache)
+            next_tokens = logits.argmax(dim=-1).to(torch.int32)
+        next_tokens = next_tokens.cpu().numpy()
         self.metrics.round_s.append(time.perf_counter() - t0)
 
         out: Dict[int, int] = {}

@@ -5,7 +5,14 @@ correction (`optimizer.py:45-68`), with the same f32 arithmetic. The step
 count `t` is a Python int on the host, so the schedule and the bias
 corrections are f32 scalars computed on the host (numpy f32, as the
 reference computes them on the device) and no step reads a device scalar.
-Updates are functional: new trees are returned, as in the reference.
+
+Two forms of one update. `adamw_update` is functional: new trees are
+returned, as in the reference (`make_train_step` and the parity tests).
+`adamw_update_` writes the params, `m` and `v` in place and takes lr and
+the bias corrections from a small f32 tensor (`adamw_hparams`, written by
+the host before the step) on the params' device, so the layer-unit
+engine's OPT unit can be captured in a CUDA graph: a replay then reads the
+step's scalars and updates the tensors the graph was captured on.
 """
 
 from __future__ import annotations
@@ -49,9 +56,17 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(leaves) + 1e-12)
 
 
-def adamw_update(cfg: AdamWConfig, grads, state, params
-                 ) -> Tuple[Any, Dict[str, Any]]:
-    t = int(state["t"]) + 1
+def adamw_hparams(cfg: AdamWConfig, t: int) -> np.ndarray:
+    """f32 [lr, bc1, bc2, lr * weight_decay] of step t (t counts from 1)."""
+    tf = np.float32(t)
+    lr = np.float32(lr_at(cfg, t))
+    return np.array([lr, np.float32(1.0) - np.float32(cfg.b1) ** tf,
+                     np.float32(1.0) - np.float32(cfg.b2) ** tf,
+                     lr * np.float32(cfg.weight_decay)], np.float32)
+
+
+def _moments(cfg: AdamWConfig, grads, state):
+    """The clipped f32 grads' new first and second moments."""
     if cfg.grad_clip > 0:
         gn = global_norm(grads)
         clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12),
@@ -63,17 +78,42 @@ def adamw_update(cfg: AdamWConfig, grads, state, params
                  state["m"], grads)
     v = tree_map(lambda v_, g: cfg.b2 * v_ + (1 - cfg.b2) * g * g,
                  state["v"], grads)
-    tf = np.float32(t)
-    bc1 = float(np.float32(1.0) - np.float32(cfg.b1) ** tf)
-    bc2 = float(np.float32(1.0) - np.float32(cfg.b2) ** tf)
-    lr = lr_at(cfg, t)
-    lr_wd = float(np.float32(lr) * np.float32(cfg.weight_decay))
+    return m, v
 
-    def upd(p, m_, v_):
-        step = lr * (m_ / bc1) / (torch.sqrt(v_ / bc2) + cfg.eps)
-        if cfg.weight_decay:
-            step = step + lr_wd * p.float()
-        return (p.float() - step).to(p.dtype)
 
-    new_params = tree_map(upd, params, m, v)
+def _stepped(cfg: AdamWConfig, p, m_, v_, lr, bc1, bc2, lr_wd):
+    """p after one step, in p's dtype; the scalars are Python floats or
+    0-d f32 tensors, which round alike."""
+    step = lr * (m_ / bc1) / (torch.sqrt(v_ / bc2) + cfg.eps)
+    if cfg.weight_decay:
+        step = step + lr_wd * p.float()
+    return (p.float() - step).to(p.dtype)
+
+
+def adamw_update(cfg: AdamWConfig, grads, state, params
+                 ) -> Tuple[Any, Dict[str, Any]]:
+    t = int(state["t"]) + 1
+    m, v = _moments(cfg, grads, state)
+    hp = [float(x) for x in adamw_hparams(cfg, t)]
+    new_params = tree_map(lambda p, m_, v_: _stepped(cfg, p, m_, v_, *hp),
+                          params, m, v)
     return new_params, {"m": m, "v": v, "t": t}
+
+
+def adamw_update_(cfg: AdamWConfig, grads, state, params,
+                  hp: torch.Tensor) -> None:
+    """`adamw_update` in place: writes `params`, `state["m"]` and
+    `state["v"]`, bit for bit what the functional form returns on the CPU.
+    hp: `adamw_hparams(cfg, state["t"] + 1)` as an f32 tensor on the
+    params' device. Launches kernels only (no host read, no new tensor
+    outlives the call), so it can be captured in a CUDA graph; the caller
+    writes hp before it runs and advances the host's `t` after."""
+    m, v = _moments(cfg, grads, state)
+    lr, bc1, bc2, lr_wd = hp.unbind()
+    for p, m_old, v_old, m_, v_ in zip(tree_leaves(params),
+                                       tree_leaves(state["m"]),
+                                       tree_leaves(state["v"]),
+                                       tree_leaves(m), tree_leaves(v)):
+        p.copy_(_stepped(cfg, p, m_, v_, lr, bc1, bc2, lr_wd))
+        m_old.copy_(m_)
+        v_old.copy_(v_)

@@ -19,9 +19,14 @@ The state is a dict like the reference's `ft_state`, with two differences.
 Its counters (`unit_idx`, `data_idx`, `iter`, `consumed`, and the
 optimizer's `t`) are Python ints on the host, so choosing the next unit
 reads no device scalar (`interop` turns them into the reference's int32
-scalars and back). And `unit_step` updates the residuals and the
-accumulated grads in place and returns the same dict: a unit then copies
-no (L+1, B, S, d) stack.
+scalars and back); on the card they choose which CUDA graph to replay, as
+`lax.switch` on `unit_idx` chooses a branch in the reference. And every
+tensor of the state keeps its address for as long as the state lives:
+each unit writes `x`, the residuals, the loss, the accumulated grads, the
+adapters and the optimizer's moments in place (`copy_`, `add_`) and
+returns the same dict. A unit then copies no (L+1, B, S, d) stack, and a
+graph captured on the state reads and writes the same memory at every
+replay.
 
 `use_kernels` routes every adapted projection of the FWD and BWD units
 through the LoRA matmul kernel: 7 launches per FWD unit and 14 per BWD unit
@@ -41,9 +46,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import lora as LR
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
-from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
-                                            adamw_update)
-from repro_torch.tree import tree_map
+from repro_torch.training.optimizer import (AdamWConfig, adamw_hparams,
+                                            adamw_init, adamw_update,
+                                            adamw_update_)
+from repro_torch.tree import tree_leaves, tree_map
 
 RESIDUAL_DTYPE = torch.bfloat16
 
@@ -115,42 +121,111 @@ def init_ft_state(cfg: ModelConfig, pc: PeftConfig, params, seed: int,
     }
 
 
-def make_unit_step(cfg: ModelConfig, pc: PeftConfig, params, *,
-                   use_kernels: bool = False):
-    """Build `unit_step(state) -> state`, which runs exactly one unit."""
-    _, scan_kind, n_scan, _ = MD._plan(cfg)
-    scale = LR.lora_scale(cfg)
-    upm = n_units_per_mb(cfg)
-    total_units = units_per_iteration(cfg, pc.accum)
-    positions = torch.arange(pc.seq_len, dtype=torch.int32,
-                             device=params["embed"].device
-                             ).expand(pc.micro_batch, pc.seq_len)
+UNIT_KINDS = ("EMBED", "FWD", "HEAD", "BWD", "EMBED_BWD", "OPT")
 
-    def current_batch(state):
-        idx = state["data_idx"] % pc.n_stage
-        return {k: v[idx] for k, v in state["data"].items()}
 
-    def layer(i, x, lora):
-        y, _ = MD.apply_layer(MD._layer(params["scan"], i), x, positions,
-                              cfg, scan_kind, mode="full", lora=lora,
-                              scale=scale, use_kernels=use_kernels)
+class UnitEngine:
+    """`unit_step(state) -> state`: runs exactly one unit per call.
+
+    A call has three parts, which the CUDA graph runner
+    (`core/colocation.py`) takes apart:
+      prepare(state)   host side, outside any graph: a microbatch's EMBED
+                       copies its tokens from the staged ring (at the host's
+                       `data_idx`) into a fixed batch buffer, its HEAD the
+                       labels and mask; OPT writes its step's lr and bias
+                       corrections into a small f32 tensor (`hp`).
+      run(state, i)    unit i's tensor work: launches only, every result
+                       written in place into the state's tensors, so that
+                       it can be captured once per unit index and replayed.
+      advance(state)   the host counters.
+    The buffers belong to the engine, not the state, so the state keeps
+    the reference's tree (`interop`)."""
+
+    def __init__(self, cfg: ModelConfig, pc: PeftConfig, params, *,
+                 use_kernels: bool = False):
+        _, self.scan_kind, self.n_scan, _ = MD._plan(cfg)
+        self.cfg, self.pc, self.params = cfg, pc, params
+        self.use_kernels = use_kernels
+        self.scale = LR.lora_scale(cfg)
+        self.upm = n_units_per_mb(cfg)
+        self.total_units = units_per_iteration(cfg, pc.accum)
+        dev = params["embed"].device
+        self.positions = torch.arange(pc.seq_len, dtype=torch.int32,
+                                      device=dev
+                                      ).expand(pc.micro_batch, pc.seq_len)
+        self.batch: Dict[str, torch.Tensor] = {}
+        self.hp = torch.zeros((4,), dtype=torch.float32, device=dev)
+
+    # ------------------------------------------------------------ plan --
+    def key(self, unit_idx: int):
+        """The unit's place in a microbatch ("opt" for OPT): units with one
+        key run the same tensor work on the same buffers."""
+        return "opt" if unit_idx >= self.pc.accum * self.upm \
+            else unit_idx % self.upm
+
+    def kind(self, unit_idx: int) -> str:
+        u = self.key(unit_idx)
+        n = self.n_scan
+        return ("OPT" if u == "opt" else "EMBED" if u == 0 else "FWD"
+                if u <= n else "HEAD" if u == n + 1 else "BWD"
+                if u <= 2 * n + 1 else "EMBED_BWD")
+
+    # ------------------------------------------------------------ host --
+    def _stage(self, state, names) -> None:
+        idx = state["data_idx"] % self.pc.n_stage
+        for k in names:
+            src = state["data"][k][idx]
+            if k not in self.batch:
+                self.batch[k] = torch.empty_like(src)
+            self.batch[k].copy_(src)
+
+    def prepare(self, state) -> None:
+        kind = self.kind(state["unit_idx"])
+        if kind == "EMBED":
+            self._stage(state, ["tokens"])
+        elif kind == "HEAD":
+            self._stage(state, [k for k in state["data"] if k != "tokens"])
+        elif kind == "OPT":
+            hp = torch.from_numpy(adamw_hparams(self.pc.opt,
+                                                state["opt"]["t"] + 1))
+            if self.hp.is_cuda:
+                hp = hp.pin_memory()
+            self.hp.copy_(hp, non_blocking=True)
+
+    def advance(self, state) -> None:
+        unit_idx = state["unit_idx"]
+        kind = self.kind(unit_idx)
+        if kind == "EMBED_BWD":
+            state["data_idx"] += 1
+            state["consumed"] += 1
+        elif kind == "OPT":
+            state["opt"]["t"] += 1
+            state["iter"] += 1
+        state["unit_idx"] = (unit_idx + 1) % self.total_units
+
+    # ---------------------------------------------------------- device --
+    def _layer(self, i, x, lora):
+        y, _ = MD.apply_layer(MD._layer(self.params["scan"], i), x,
+                              self.positions, self.cfg, self.scan_kind,
+                              mode="full", lora=lora, scale=self.scale,
+                              use_kernels=self.use_kernels)
         return y
 
-    def u_embed(state, _u):
-        x, _, _ = MD._embed_inputs(params, cfg,
-                                   {"tokens": current_batch(state)["tokens"]})
-        state["x"] = x.to(RESIDUAL_DTYPE)
+    def _embed(self, state, _u):
+        x, _, _ = MD._embed_inputs(self.params, self.cfg,
+                                   {"tokens": self.batch["tokens"]})
+        state["x"].copy_(x)
         state["residuals"][0] = x
 
-    def u_fwd(state, u):
+    def _fwd(self, state, u):
         i = u - 1
         ad = LR.slice_adapters(state["adapters"]["scan"], i)
-        y = layer(i, state["x"], ad)
-        state["x"] = y.to(RESIDUAL_DTYPE)
+        y = self._layer(i, state["x"], ad)
+        state["x"].copy_(y)
         state["residuals"][i + 1] = y
 
-    def head_loss(x, state):
-        batch = current_batch(state)
+    def _head_loss(self, x):
+        cfg, params, batch = self.cfg, self.params, self.batch
         h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
         mask = batch.get("mask")
@@ -158,22 +233,22 @@ def make_unit_step(cfg: ModelConfig, pc: PeftConfig, params, *,
             h[:, :-1], table, batch["labels"][:, 1:],
             None if mask is None else mask[:, 1:])
 
-    def u_head(state, _u):
+    def _head(self, state, _u):
         x = state["x"].detach().requires_grad_()
         with torch.enable_grad():
-            loss = head_loss(x, state)
+            loss = self._head_loss(x)
             (dx,) = torch.autograd.grad(loss, [x])
-        state["x"] = dx.to(RESIDUAL_DTYPE)
-        state["loss"] = state["loss"] + loss.detach() / pc.accum
+        state["x"].copy_(dx)
+        state["loss"].add_(loss.detach() / self.pc.accum)
 
-    def u_bwd(state, u):
-        i = 2 * n_scan + 1 - u                   # layer index, descending
+    def _bwd(self, state, u):
+        i = 2 * self.n_scan + 1 - u              # layer index, descending
         x_in = state["residuals"][i].detach().requires_grad_()
         ad = {name: {k: t[i].detach().requires_grad_() for k, t in v.items()}
               for name, v in state["adapters"]["scan"].items()}
         names = list(ad)
         with torch.enable_grad():
-            y = layer(i, x_in, LR.as_pairs(ad))
+            y = self._layer(i, x_in, LR.as_pairs(ad))
             grads = torch.autograd.grad(
                 y, [x_in] + [ad[n][k] for n in names for k in ("a", "b")],
                 grad_outputs=state["x"].to(y.dtype))
@@ -181,42 +256,37 @@ def make_unit_step(cfg: ModelConfig, pc: PeftConfig, params, *,
         for j, n in enumerate(names):
             acc[n]["a"][i] += grads[1 + 2 * j].float()
             acc[n]["b"][i] += grads[2 + 2 * j].float()
-        state["x"] = grads[0].to(RESIDUAL_DTYPE)
+        state["x"].copy_(grads[0])
 
-    def u_embed_bwd(state, _u):
-        state["data_idx"] += 1
-        state["consumed"] += 1
+    def _opt(self, state, _u):
+        adamw_update_(self.pc.opt, state["grads"], state["opt"],
+                      state["adapters"], self.hp)
+        for g in tree_leaves(state["grads"]):
+            g.zero_()
+        state["last_loss"].copy_(state["loss"])
+        state["loss"].zero_()
 
-    def u_opt(state, _u):
-        state["adapters"], state["opt"] = adamw_update(
-            pc.opt, state["grads"], state["opt"], state["adapters"])
-        tree_map(torch.Tensor.zero_, state["grads"])
-        state["last_loss"] = state["loss"]
-        state["loss"] = torch.zeros_like(state["loss"])
-        state["iter"] += 1
+    def run(self, state, unit_idx: int) -> None:
+        """Unit `unit_idx`'s tensor work (nothing for EMBED_BWD)."""
+        kind = self.kind(unit_idx)
+        if kind == "EMBED_BWD":
+            return
+        fn = {"EMBED": self._embed, "FWD": self._fwd, "HEAD": self._head,
+              "BWD": self._bwd, "OPT": self._opt}[kind]
+        with torch.no_grad():
+            fn(state, unit_idx % self.upm)
 
-    def branch(unit_idx: int):
-        if unit_idx >= pc.accum * upm:
-            return u_opt
-        u = unit_idx % upm
-        if u == 0:
-            return u_embed
-        if u <= n_scan:
-            return u_fwd
-        if u == n_scan + 1:
-            return u_head
-        if u <= 2 * n_scan + 1:
-            return u_bwd
-        return u_embed_bwd
-
-    @torch.no_grad()
-    def unit_step(state):
-        unit_idx = state["unit_idx"]
-        branch(unit_idx)(state, unit_idx % upm)
-        state["unit_idx"] = (unit_idx + 1) % total_units
+    def __call__(self, state):
+        self.prepare(state)
+        self.run(state, state["unit_idx"])
+        self.advance(state)
         return state
 
-    return unit_step
+
+def make_unit_step(cfg: ModelConfig, pc: PeftConfig, params, *,
+                   use_kernels: bool = False) -> UnitEngine:
+    """Build `unit_step(state) -> state`, which runs exactly one unit."""
+    return UnitEngine(cfg, pc, params, use_kernels=use_kernels)
 
 
 def run_units(unit_step, state, k: int):

@@ -30,6 +30,7 @@ from repro_torch.core.scheduler import (QoSScheduler,  # noqa: E402
 from repro_torch.interop import to_numpy, to_torch  # noqa: E402
 from repro_torch.kernels import decode_attention as K1  # noqa: E402
 from repro_torch.kernels import lora_matmul as K2  # noqa: E402
+from repro_torch.kernels import ssd_scan as K3  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as TMD  # noqa: E402
 from repro_torch.models.config import LoRAConfig, ModelConfig  # noqa: E402
@@ -125,6 +126,108 @@ def test_colocated_round_equals_decode_plus_units(tiny, use_kernels):
     res, res_j = _f32(ft_f["residuals"]), np.asarray(ft_j["residuals"],
                                                      np.float32)
     assert np.linalg.norm(res - res_j) <= 2e-2 * np.linalg.norm(res_j)
+
+
+SSM_TINY = dict(TINY, family="ssm", d_ff=0, ssm_state=16, ssm_headdim=16,
+                ssm_chunk=4)
+
+
+@pytest.fixture(scope="module")
+def tiny_ssm():
+    """`tiny` for the SSM family (a 2-layer Mamba2 stack, f32 weights):
+    the JAX runner's round of k = 4 units (EMBED, FWD x 2, HEAD) over a
+    prefilled state. The reference runner's units run without kernels,
+    since it cannot push its K3 through autodiff (ROADMAP.md §3)."""
+    jcfg = JModelConfig(**SSM_TINY, lora=JLoRAConfig(rank=4))
+    tcfg = ModelConfig(**SSM_TINY, lora=LoRAConfig(rank=4))
+    params = JMD.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    pc = JP.PeftConfig(micro_batch=2, seq_len=8, accum=1)
+    staged = jdata.Prefetcher(jdata.SyntheticCorpus(
+        jdata.DataConfig(128, 8, 2)).batches(), 2).stacked()
+    ft0 = JP.init_ft_state(jcfg, pc, params, jax.random.PRNGKey(1), staged)
+    rng = np.random.default_rng(3)
+    for v in ft0["adapters"]["scan"].values():
+        v["b"] = jnp.asarray(rng.normal(size=v["b"].shape).astype(np.float32)
+                             * 0.05)
+    ft0 = jax.tree.map(np.asarray, ft0)
+    prompts = rng.integers(0, 128, size=(3, 7)).astype(np.int32)
+    _, cache0 = JMD.prefill(params, jcfg, {"tokens": jnp.asarray(prompts)},
+                            JMD.init_cache(jcfg, 3, 32, dtype=jnp.float32))
+    cache0 = jax.tree.map(np.asarray, cache0)
+    tok = np.array([1, 2, 3], np.int32)
+    pos = np.array([7, 7, 7], np.int32)
+    runner = JRunner(jcfg, params, jcfg, params, pc, k_max=4, donate=False)
+    out = jax.tree.map(np.asarray, runner.run_round(4, tok, pos, cache0, ft0))
+    return tcfg, params, ft0, cache0, tok, pos, out
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_ssm_colocated_round_equals_decode_plus_units(tiny_ssm, use_kernels):
+    """The mamba2 mirror of test_colocated_round_equals_decode_plus_units:
+    bit-equal to an SSM decode step plus 4 separate units inside torch,
+    and within tolerance of the JAX runner. LoRA on the SSM family is the
+    parallel `ssm_io` adapter (plain matmuls) and the units keep the
+    differentiable scan, so no kernel is called with the kernels on."""
+    tcfg, params_j, ft0_j, cache0_j, tok, pos, (lg_j, cache_j, ft_j) = \
+        tiny_ssm
+    params = to_torch(params_j)
+    pc = TP.PeftConfig(micro_batch=2, seq_len=8, accum=1)
+    ft0, cache0 = to_torch(ft0_j), to_torch(cache0_j)
+    tok_t, pos_t = torch.from_numpy(tok), torch.from_numpy(pos)
+
+    runner = C.ColocatedRunner(tcfg, params, tcfg, params, pc, k_max=4,
+                               use_kernels=use_kernels)
+    calls = (K1.PLAIN_CALLS, K2.PLAIN_CALLS, K3.PLAIN_CALLS)
+    lg_f, cache_f, ft_f = runner.run_round(4, tok_t, pos_t, _clone(cache0),
+                                           _clone(ft0))
+    assert (K1.PLAIN_CALLS, K2.PLAIN_CALLS, K3.PLAIN_CALLS) == calls
+    lg_s, cache_s = TMD.decode_step(params, tcfg, tok_t, pos_t,
+                                    _clone(cache0), use_kernels=use_kernels)
+    ft_s = TP.run_units(TP.make_unit_step(tcfg, pc, params,
+                                          use_kernels=use_kernels),
+                        _clone(ft0), 4)
+    assert torch.equal(lg_f, lg_s)
+    for a, b in zip(tree_leaves(cache_f), tree_leaves(cache_s)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(ft_f), tree_leaves(ft_s)):
+        assert (a == b) if isinstance(a, int) else torch.equal(a, b)
+    assert ft_f["unit_idx"] == 4
+
+    # against the JAX runner: the f32 decode and its f32 state h to 2e-4,
+    # as the dense round; the bf16 conv window to one bf16 rounding; the
+    # units' bf16 stream to the dense round's bf16 noise
+    np.testing.assert_allclose(_f32(lg_f), lg_j, atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_f32(cache_f["scan"]["h"]),
+                               cache_j["scan"]["h"], atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_f32(cache_f["scan"]["conv"]),
+                               np.asarray(cache_j["scan"]["conv"],
+                                          np.float32), atol=1e-2, rtol=1e-2)
+    assert float(ft_f["loss"]) == pytest.approx(float(ft_j["loss"]),
+                                                rel=1e-2)
+    dx, dx_j = _f32(ft_f["x"]), np.asarray(ft_j["x"], np.float32)
+    assert np.linalg.norm(dx - dx_j) <= 5e-2 * np.linalg.norm(dx_j)
+    res, res_j = _f32(ft_f["residuals"]), np.asarray(ft_j["residuals"],
+                                                     np.float32)
+    assert np.linalg.norm(res - res_j) <= 2e-2 * np.linalg.norm(res_j)
+
+
+def test_graphs_on_the_cpu_raise():
+    """CUDA graphs exist only on the card: the CPU runs eager rounds by
+    default, and asking for graphs there raises (nothing falls back)."""
+    cfg = smoke_config("llama3-8b")
+    params = TMD.init_params(cfg, 0, device="cpu")
+    pc = TP.PeftConfig(micro_batch=2, seq_len=12, accum=1)
+    with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
+        ServingEngine(cfg, params, device="cpu", graphs=True)
+    with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
+        C.ColocatedRunner(cfg, params, cfg, params, pc, graphs=True)
+    with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
+        C.make_ft_only_step(cfg, params, pc, units=1, graphs=True)
+    eng = ServingEngine(cfg, params, device="cpu")
+    assert not eng.graphs
+    with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
+        eng.precompile()
+    assert not C.ColocatedRunner(cfg, params, cfg, params, pc).graphs
 
 
 def test_variant_clamps_and_ft_only_burst():
@@ -255,6 +358,15 @@ def test_colocated_serving_end_to_end():
     assert sum(d.k for d in sched.decisions) == m.ft_units
     assert ft_state["iter"] > it0 or ft_state["unit_idx"] != units0
     assert K2.PLAIN_CALLS > k2          # the adapted projections went through
+
+
+def test_serve_entry_point_colocates_mamba2_on_cpu():
+    m = serve.main(["--smoke", "--device", "cpu", "--colocate",
+                    "--use-kernels", "--arch", "mamba2-780m", "--requests",
+                    "3", "--slots", "2", "--s-max", "64", "--k-max", "2",
+                    "--qos-s", "10"])
+    assert m.prefills == 3 and m.decode_rounds > 0
+    assert m.ft_units == 2 * m.decode_rounds
 
 
 def test_serve_entry_point_colocates_on_cpu():

@@ -10,11 +10,17 @@ kernel and the FMA kernel, which one each case took by the counters; ragged chun
 through the strides of the conv output) against their plain torch
 versions, a decode step through K1 against the dense oracle, mamba2's
 512-token prefill through K3 against an f64 recurrence, and an SSM
-prefill through K3 against the plain scan. Each skips
+prefill through K3 against the plain scan; and the CUDA graphs of the
+decode step and the co-located round (on llama3 and mamba2 smoke widths,
+kernels on) against eager rounds, bit for bit, with `precompile` leaving
+the cache and the finetune state as they were and each replay counting
+its captured launches. Each skips
 with a reason where no CUDA device is present. This file
 imports no JAX (the machine with the card has none), so run it there with
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,11 +28,19 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.core import colocation as C  # noqa: E402
 from repro_torch.kernels import decode_attention as K  # noqa: E402
 from repro_torch.kernels import lora_matmul as K2  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ssd_scan as K3  # noqa: E402
 from repro_torch.models import model as MD  # noqa: E402
+from repro_torch.serving.engine import DecodeGraph, ServingEngine  # noqa: E402
+from repro_torch.serving.request import Request  # noqa: E402
+from repro_torch.training import optimizer as topt  # noqa: E402
+from repro_torch.training import peft as TP  # noqa: E402
+from repro_torch.training.data import (DataConfig, Prefetcher,  # noqa: E402
+                                       SyntheticCorpus)
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # B, H, KV, hd, ptok, n_pages, dtype
 CASES = [
@@ -404,3 +418,189 @@ def test_ssm_prefill_through_k3_matches_plain():
                                rtol=2e-3)
     torch.testing.assert_close(out[True][1], out[False][1], atol=2e-3,
                                rtol=2e-3)
+
+
+# ------------------------------------------------------- CUDA graphs ----
+def _graph_cfg(arch):
+    """The smoke width, LoRA rank 8 so that the units' adapted projections
+    take K2's wgmma kernel (the main path's)."""
+    cfg = smoke_config(arch)
+    return dataclasses.replace(cfg, lora=dataclasses.replace(cfg.lora,
+                                                             rank=8))
+
+
+def _clone(tree):
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                    tree)
+
+
+def _assert_same(a, b):
+    """Two trees of tensors and host ints, bit for bit."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert (x == y) if isinstance(x, int) else torch.equal(x, y)
+
+
+def _served_cache(cfg, params, dev, lengths=(5, 17, 64, 1)):
+    """A 4-slot bf16 cache with each slot prefilled (through the kernels)
+    as the engine's admissions fill it, and the next round's inputs."""
+    cache = MD.init_cache(cfg, len(lengths), 128, device=dev)
+    gen = torch.Generator(dev).manual_seed(4)
+    last = []
+    for b, n in enumerate(lengths):
+        one = MD.init_cache(cfg, 1, 128, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (1, n), device=dev,
+                             generator=gen)
+        logits, one = MD.prefill(params, cfg, {"tokens": toks}, one,
+                                 use_kernels=True)
+        for name, dst in cache["scan"].items():
+            dst[:, b] = one["scan"][name][:, 0]
+        last.append(logits.argmax(-1).to(torch.int32))
+    pos = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return cache, torch.cat(last), pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m"])
+def test_graphed_decode_step_equals_eager(arch):
+    """The decode step captured as a CUDA graph (kernels on) gives the
+    eager step's logits, greedy tokens and cache bit for bit over three
+    rounds; capturing leaves the cache as it was; each replay counts its
+    K1 launches (one per layer on llama3, none on mamba2); a cache other
+    than the captured one is refused."""
+    dev = _card()
+    cfg = _graph_cfg(arch)
+    params = MD.init_params(cfg, 0, device=dev)
+    cache, tok, pos = _served_cache(cfg, params, dev)
+    saved = _clone(cache)
+    graph = DecodeGraph(params, cfg, cache, use_kernels=True)
+    torch.cuda.synchronize()
+    _assert_same(cache, saved)
+    cache_e = _clone(cache)
+    per_round = cfg.num_layers if arch == "llama3-8b" else 0
+    for _ in range(3):
+        logits_e, _ = MD.decode_step(params, cfg, tok, pos, cache_e,
+                                     use_kernels=True)
+        before = K.LAUNCHES
+        logits_g = graph(tok, pos, cache)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES - before == per_round
+        assert torch.equal(logits_g, logits_e)
+        assert torch.equal(graph.next_tokens,
+                           logits_e.argmax(-1).to(torch.int32))
+        _assert_same(cache, cache_e)
+        tok, pos = graph.next_tokens.clone(), pos + 1
+    with pytest.raises(ValueError, match="another cache"):
+        graph(tok, pos, cache_e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m"])
+def test_graphed_rounds_equal_eager_rounds(arch):
+    """Co-located rounds replayed from CUDA graphs (decode, then k unit
+    graphs) equal eager rounds (decode_step, then k unit_step calls) bit
+    for bit, for k in {0, 1, 3, k_max} over three iterations with their
+    OPT units; `precompile` leaves the cache and the finetune state (its
+    tensors and its host counters) as they were; a graphed ft-only burst
+    equals an eager one; a state other than the captured one is refused."""
+    dev = _card()
+    cfg = _graph_cfg(arch)
+    params = MD.init_params(cfg, 0, device=dev)
+    cache, tok, pos = _served_cache(cfg, params, dev)
+    pc = TP.PeftConfig(micro_batch=2, seq_len=32, accum=1,
+                       opt=topt.AdamWConfig(lr=1e-3, warmup_steps=1))
+    staged = Prefetcher(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, 32, 2, seed=1)).batches(), pc.n_stage).stacked()
+    ft = TP.init_ft_state(cfg, pc, params, 0, staged)
+    k_max = 4
+    graphed = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=k_max,
+                                use_kernels=True)
+    eager = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=k_max,
+                              use_kernels=True, graphs=False)
+    assert graphed.graphs and not eager.graphs
+    cache_e, ft_e = _clone(cache), _clone(ft)
+    graphed.precompile(cache, ft)
+    torch.cuda.synchronize()
+    _assert_same(cache, cache_e)
+    _assert_same(ft, ft_e)
+    ks = [0, 1, 3, k_max] * 3
+    assert sum(ks) == 3 * TP.units_per_iteration(cfg, pc.accum)
+    for k in ks:
+        lg_g, _, _ = graphed.run_round(k, tok, pos, cache, ft)
+        lg_e, _, _ = eager.run_round(k, tok, pos, cache_e, ft_e)
+        torch.cuda.synchronize()
+        assert torch.equal(lg_g, lg_e)
+        _assert_same(cache, cache_e)
+        _assert_same(ft, ft_e)
+        tok, pos = lg_e.argmax(-1).to(torch.int32), pos + 1
+    assert ft["iter"] == 3 and ft["unit_idx"] == 0
+    assert np.isfinite(float(ft["last_loss"]))
+    with pytest.raises(ValueError, match="another finetune state"):
+        graphed.run_round(1, tok, pos, cache, ft_e)
+    burst_g = C.make_ft_only_step(cfg, params, pc, units=5)
+    burst_e = C.make_ft_only_step(cfg, params, pc, units=5, graphs=False)
+    for _ in range(2):
+        _assert_same(burst_g(ft), burst_e(ft_e))
+
+
+@pytest.mark.gpu
+def test_replays_count_their_captured_launches():
+    """Capture launches nothing and moves no counter; each replay adds its
+    captured launches: K1 once per layer in the decode graph, K2 7 times
+    in a FWD unit's graph and 14 in a BWD unit's (all wgmma), nothing in
+    EMBED, HEAD and OPT."""
+    dev = _card()
+    cfg = _graph_cfg("llama3-8b")
+    params = MD.init_params(cfg, 0, device=dev)
+    cache, tok, pos = _served_cache(cfg, params, dev)
+    pc = TP.PeftConfig(micro_batch=2, seq_len=32, accum=1)
+    staged = Prefetcher(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, 32, 2, seed=1)).batches(), pc.n_stage).stacked()
+    ft = TP.init_ft_state(cfg, pc, params, 0, staged)
+    runner = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=8,
+                               use_kernels=True)
+    k1, k2 = K.LAUNCHES, K2.LAUNCHES_WGMMA
+    runner.precompile(cache, ft)
+    # the warm-up launches for real: one decode step and one iteration
+    n = cfg.num_layers
+    assert K.LAUNCHES - k1 == n and K2.LAUNCHES_WGMMA - k2 == 21 * n
+    assert runner._decode.graph.launches == {(K, "LAUNCHES"): n}
+    unit = runner.unit_step
+    for key, graph in runner._units.graphs.items():
+        kind = unit.kind(pc.accum * unit.upm if key == "opt" else key)
+        per = {"FWD": 7, "BWD": 14}.get(kind, 0)
+        assert graph.launches == ({(K2, "LAUNCHES"): per,
+                                   (K2, "LAUNCHES_WGMMA"): per}
+                                  if per else {})
+    before = (K.LAUNCHES, K2.LAUNCHES, K2.LAUNCHES_WGMMA, K2.PLAIN_CALLS)
+    runner.run_round(2 * n + 2, tok, pos, cache, ft)  # EMBED .. last BWD
+    assert (K.LAUNCHES, K2.LAUNCHES, K2.LAUNCHES_WGMMA, K2.PLAIN_CALLS) == (
+        before[0] + n, before[1] + 21 * n, before[2] + 21 * n, before[3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m"])
+def test_graphed_engine_tokens_equal_eager_engine(arch):
+    """An engine replaying its decode graph (the default on the card) and
+    one running eager rounds give the same greedy tokens round by round
+    for the same admitted prompts."""
+    dev = _card()
+    cfg = _graph_cfg(arch)
+    params = MD.init_params(cfg, 0, device=dev)
+    engines = [ServingEngine(cfg, params, max_slots=4, s_max=128,
+                             use_kernels=True, device=dev, graphs=g)
+               for g in (None, False)]
+    assert engines[0].graphs and not engines[1].graphs
+    rng = np.random.default_rng(5)
+    for i, n in enumerate((9, 40, 3, 70)):
+        prompt = rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+        for eng in engines:
+            assert eng.try_admit(Request(rid=i, arrival=0.0, prompt_len=n,
+                                         max_new_tokens=12), prompt)
+    rounds = 0
+    while engines[1].active_requests():
+        assert engines[0].decode_round() == engines[1].decode_round()
+        rounds += 1
+    assert rounds == 11 and not engines[0].active_requests()
+    _assert_same(engines[0].cache, engines[1].cache)

@@ -76,12 +76,14 @@ def test_synthetic_corpus_and_prefetcher_match_reference():
 
 
 # ----------------------------------------------------------------- AdamW --
-@pytest.mark.parametrize("opt", [
+ADAMW_CASES = [
     dict(),
     dict(lr=1e-3, weight_decay=0.01, grad_clip=0.5, warmup_steps=2),
     dict(lr=5e-3, grad_clip=0.0, warmup_steps=1),
-])
-def test_adamw_matches_reference(opt):
+]
+
+
+def _adamw_inputs():
     rng = np.random.default_rng(0)
 
     def tree(scale):
@@ -91,6 +93,12 @@ def test_adamw_matches_reference(opt):
     params = tree_map(lambda x: x.astype(np.float32), tree(0.5))
     grads_seq = [tree_map(lambda x: x.astype(np.float32), tree(s))
                  for s in (1e-3, 2.0, 0.3)]
+    return params, grads_seq
+
+
+@pytest.mark.parametrize("opt", ADAMW_CASES)
+def test_adamw_matches_reference(opt):
+    params, grads_seq = _adamw_inputs()
     cj, ct = jopt.AdamWConfig(**opt), topt.AdamWConfig(**opt)
     pj, sj = params, jopt.adamw_init(params)
     pt = to_torch(params)
@@ -105,6 +113,41 @@ def test_adamw_matches_reference(opt):
                                    atol=1e-6, rtol=1e-6)
     for t in (0, 1, 5, 20):
         assert topt.lr_at(ct, t) == float(jopt.lr_at(cj, jnp.int32(t)))
+
+
+@pytest.mark.parametrize("opt", ADAMW_CASES)
+def test_adamw_in_place_matches_functional_and_reference(opt):
+    """The unit engine's in-place AdamW, its lr and bias corrections read
+    from a small f32 tensor written before each step, writes the same bits
+    as the functional update into the same tensors (a CUDA graph captured
+    on them sees every step), and so meets the reference at the
+    functional update's tolerance."""
+    params, grads_seq = _adamw_inputs()
+    cj, ct = jopt.AdamWConfig(**opt), topt.AdamWConfig(**opt)
+    pj, sj = params, jopt.adamw_init(params)
+    pt = to_torch(params)
+    st = topt.adamw_init(pt)
+    pi = to_torch(params)
+    si = topt.adamw_init(pi)
+    hp = torch.zeros((4,), dtype=torch.float32)
+    addresses = [t.data_ptr() for t in tree_leaves([pi, si["m"], si["v"]])]
+    for g in grads_seq:
+        pj, sj = jopt.adamw_update(cj, g, sj, pj)
+        pt, st = topt.adamw_update(ct, to_torch(g), st, pt)
+        hp.copy_(torch.from_numpy(topt.adamw_hparams(ct, si["t"] + 1)))
+        assert float(hp[0]) == topt.lr_at(ct, si["t"] + 1)
+        topt.adamw_update_(ct, to_torch(g), si, pi, hp)
+        si["t"] += 1
+        for a, b in zip(tree_leaves([pt, st["m"], st["v"]]),
+                        tree_leaves([pi, si["m"], si["v"]])):
+            assert torch.equal(a, b)
+    assert si["t"] == st["t"] == 3
+    assert [t.data_ptr() for t in tree_leaves([pi, si["m"], si["v"]])] == \
+        addresses
+    for got, expect in zip(tree_leaves([pi, si["m"], si["v"]]),
+                           jax.tree.leaves([pj, sj["m"], sj["v"]])):
+        np.testing.assert_allclose(_f32(got), np.asarray(expect),
+                                   atol=1e-6, rtol=1e-6)
 
 
 # ------------------------------------------------------- forward / loss --
@@ -376,6 +419,49 @@ def test_loss_descends():
         ad, st, m = step(params, ad, st, batch)
         losses.append(float(m["loss"]))
     assert losses[-1] < losses[0] - 0.05, losses
+
+
+def _addresses(tree, path=""):
+    """{path: data_ptr} of every tensor of a state tree."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_addresses(v, f"{path}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_addresses(v, f"{path}/{i}"))
+        return out
+    return {path: tree.data_ptr()} if isinstance(tree, torch.Tensor) else {}
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m"])
+def test_ft_state_tensors_keep_their_addresses(arch):
+    """Every tensor of `ft_state` (x, the residuals, the loss and last
+    loss, the adapters, AdamW's m and v, the accumulated grads, the staged
+    ring) keeps its address through a whole iteration of two microbatches
+    and its OPT: the units write in place, which is what lets a CUDA graph
+    captured on the state replay on it."""
+    cfg = tconfigs.smoke_config(arch)
+    params = TMD.init_params(cfg, 0, device="cpu")
+    pc = TP.PeftConfig(micro_batch=2, seq_len=16, accum=2,
+                       opt=topt.AdamWConfig(lr=1e-3, warmup_steps=1))
+    staged = tdata.Prefetcher(tdata.SyntheticCorpus(tdata.DataConfig(
+        cfg.vocab_size, 16, 2, seed=2)).batches(), 2).stacked()
+    state = TP.init_ft_state(cfg, pc, params, 0, staged)
+    before = _addresses(state)
+    assert {"/x", "/residuals", "/loss", "/last_loss"} <= set(before)
+    adapters0 = tree_map(torch.clone, state["adapters"])
+    unit = TP.make_unit_step(cfg, pc, params)
+    for _ in range(TP.units_per_iteration(cfg, pc.accum)):
+        state = unit(state)
+        assert _addresses(state) == before
+    assert state["iter"] == 1 and state["unit_idx"] == 0
+    assert state["opt"]["t"] == 1 and state["consumed"] == 2
+    assert float(state["last_loss"]) > 0 and float(state["loss"]) == 0.0
+    assert any(not torch.equal(a, b) for a, b in
+               zip(tree_leaves(state["adapters"]), tree_leaves(adapters0)))
 
 
 def test_unit_engine_loss_descends_with_kernels_switch():
