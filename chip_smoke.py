@@ -84,6 +84,31 @@ Then the llama3 objects are freed and the peak-memory count reset:
      (LoRA is the parallel `ssm_io` adapter, so the units launch no K2;
      they keep the differentiable plain scan), K3's launches from the
      admissions counted (48 per prefill), no plain call.
+Then the mamba2 objects are freed:
+ 11. h2o-danube-1.8b, whole (24 layers, d 2560, 32 heads / 8 KV of hd 80,
+     window 4096), served past its window: `ServingEngine(use_kernels=
+     True)` with 8 slots and s_max 4608, so each slot's cache is a ring of
+     4096; 16 requests of 3,900-4,500 prompt tokens (seeded) and 32 new
+     tokens from the decode graph, K1's launches held at 24 per round;
+     then 8 prompts of 4,097-4,500 tokens admitted and K1 on their layer-0
+     rings (wrapped by the prefill's split write) against its plain
+     version and the windowed dense oracle, timed beside its byte bound,
+     the plain version and SDPA, and again on their layer-0 and last
+     layer's rings after 8 served decode rounds; the eager/graphed A/B
+     and a graphed decode step bit-equal to the eager one;
+ 12. mixtral-8x7b at published width (d 4096, 32 heads / 8 KV of 128, 8
+     experts of 14336, top-2, window 4096) with 16 of its 32 layers (all
+     32 are 93.4 GB of bf16 weights; one card has 80 GB): every MoE
+     layer's expert shares, dropped share and token cosine on 2 x 1024
+     uniform and corpus tokens, `moe_forward` on the first and the last
+     layer held against `moe_plain` (a per-expert loop); served as
+     phase 3 (graphed, the A/B, a decode step bit-equal to the eager one;
+     the MoE layers' dropped share in the admissions' prefills); its
+     finetune units (LoRA r 16 on q/k/v/o, micro-batch 2 x 1024, accum 1,
+     36 units per iteration): one eager iteration (K2's launches by
+     route, all wgmma; the dropped share in training), then eager and
+     graphed iterations in turns, medians by kind; then co-located as
+     phase 7, with a graphed 6-unit round bit-equal to the eager one.
 The second line from the end lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repository
 around it, the script exits nonzero and prints no result.
@@ -92,6 +117,8 @@ around it, the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
 import gc
 import json
 import statistics
@@ -562,9 +589,28 @@ def grad_agreement(got, expect):
     return worst_rel, worst_frob, where
 
 
-# K2 launches of one unit, by its kind: 7 per FWD, 14 per BWD (7 forward
-# + 7 dx), none in EMBED, HEAD, EMBED_BWD and OPT
-K2_PER_UNIT = {"FWD": 7, "BWD": 14}
+def k2_per_unit(cfg):
+    """K2 launches of one unit by kind: one per adapted projection of a
+    layer in FWD, two (forward and dx) in BWD, none in EMBED, HEAD,
+    EMBED_BWD and OPT: 7 and 14 on llama3 (q/k/v/o/gate/up/down), 4 and 8
+    on mixtral (q/k/v/o: the routed experts take no adapters)."""
+    from repro_torch.models import lora as LR
+    from repro_torch.models import model as MD
+    n = len(LR._target_dims(cfg, MD._plan(cfg)[1]))
+    return {"FWD": n, "BWD": 2 * n}
+
+
+def timed_unit_run(unit, step, state, n):
+    """n units through `step`, synchronized after each: (state, {kind:
+    [s]}), the kinds read from the unit engine `unit`."""
+    times = {}
+    for _ in range(n):
+        kind = unit.kind(state["unit_idx"])
+        t0 = time.perf_counter()
+        state = step(state)
+        torch.cuda.synchronize()
+        times.setdefault(kind, []).append(time.perf_counter() - t0)
+    return state, times
 
 
 def phase5_k2(cfg):
@@ -627,23 +673,13 @@ def phase6_train(cfg, params, seq_len):
     upm = P.n_units_per_mb(cfg)
     unit = P.make_unit_step(cfg, pc, params, use_kernels=True)
 
-    def timed_units(step, state, n):
-        """n units, synchronized after each: (state, {kind: [s]})."""
-        times = {}
-        for _ in range(n):
-            kind = unit.kind(state["unit_idx"])
-            t0 = time.perf_counter()
-            state = step(state)
-            torch.cuda.synchronize()
-            times.setdefault(kind, []).append(time.perf_counter() - t0)
-        return state, times
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K2.LAUNCHES = K2.LAUNCHES_WGMMA = K2.LAUNCHES_WMMA = K2.LAUNCHES_F32 = 0
     K2.PLAIN_CALLS = 0
     t0 = time.perf_counter()
-    ft, cold = timed_units(unit, ft, P.units_per_iteration(cfg, pc.accum))
+    ft, cold = timed_unit_run(unit, unit, ft,
+                              P.units_per_iteration(cfg, pc.accum))
     iter_s = time.perf_counter() - t0
     train_launches, train_plain = K2.LAUNCHES, K2.PLAIN_CALLS
     train_wgmma = K2.LAUNCHES_WGMMA
@@ -690,8 +726,9 @@ def phase6_train(cfg, params, seq_len):
             lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
     start = clone(ft)
     unit_plain = P.make_unit_step(cfg, pc, params, use_kernels=False)
-    ft, warm = timed_units(unit, ft, upm)
-    ft_plain, warm_plain = timed_units(unit_plain, clone(start), upm)
+    ft, warm = timed_unit_run(unit, unit, ft, upm)
+    ft_plain, warm_plain = timed_unit_run(unit, unit_plain, clone(start),
+                                          upm)
     stream = {"K2": [], "plain": []}
     for name, step in 3 * (("plain", unit_plain), ("K2", unit)):
         state = clone(start)
@@ -775,8 +812,8 @@ def phase6_train(cfg, params, seq_len):
     by_mode = {"eager": {}, "graphed": {}}
     for mode in ("eager", "graphed", "graphed", "eager"):
         before = (K2.LAUNCHES, K2.LAUNCHES_WGMMA)
-        ft, ts = timed_units(unit if mode == "eager" else graphed_step, ft,
-                             total)
+        ft, ts = timed_unit_run(unit, unit if mode == "eager"
+                                else graphed_step, ft, total)
         for kind, t in ts.items():
             by_mode[mode].setdefault(kind, []).extend(t)
         moved = (K2.LAUNCHES - before[0], K2.LAUNCHES_WGMMA - before[1])
@@ -960,24 +997,28 @@ def serve_colocated(tag, cfg, params, eng, solo_round_s, seq_len):
                        for j in range(m.ft_units)])
 
 
-def phase7_colocated(cfg, params, eng, solo_round_s, seq_len):
-    """Co-located llama3-8b: `serve_colocated`, with K1's launches held at
-    32 per round and K2's at the sum over the units run, all wgmma.
-    Returns the K1 and K2 launches of the serving."""
+def phase7_colocated(cfg, params, eng, solo_round_s, seq_len, tag="colo"):
+    """Co-located llama3-8b (and mixtral-8x7b in phase 12, under `tag`):
+    `serve_colocated`, with K1's launches held at one per layer per round
+    and K2's at the sum over the units run, all wgmma. Returns the K1 and
+    K2 launches of the serving."""
     # ----------------------------------------- 7. co-located serving --
-    out = serve_colocated("colo", cfg, params, eng, solo_round_s, seq_len)
+    out = serve_colocated(tag, cfg, params, eng, solo_round_s, seq_len)
     m, counts = out["m"], out["counts"]
-    k2_expect = sum(K2_PER_UNIT.get(kind, 0) for kind in out["kinds"])
+    per_unit = k2_per_unit(cfg)
+    k2_expect = sum(per_unit.get(kind, 0) for kind in out["kinds"])
     k1, k2, k2w = counts[("K1", "LAUNCHES")], counts[("K2", "LAUNCHES")], \
         counts[("K2", "LAUNCHES_WGMMA")]
     plain = sum(n for (_, c), n in counts.items() if c == "PLAIN_CALLS")
-    log(f"colo: K1 launches={k1} ({cfg.num_layers} x {m.decode_rounds} "
+    log(f"{tag}: K1 launches={k1} ({cfg.num_layers} x {m.decode_rounds} "
         f"rounds = {cfg.num_layers * m.decode_rounds}) K2 launches={k2} "
         f"(expected from the units run: {k2_expect}; on the wgmma kernel "
-        f"{k2w}) plain calls={plain}")
+        f"{k2w}, WMMA {counts[('K2', 'LAUNCHES_WMMA')]}, FMA "
+        f"{counts[('K2', 'LAUNCHES_F32')]}) plain calls={plain}")
     if k1 != cfg.num_layers * m.decode_rounds or k2 != k2_expect or \
             k2w != k2 or plain:
-        raise AssertionError("co-located rounds did not run through K1/K2")
+        raise AssertionError(f"{tag}: co-located rounds did not run through "
+                             "K1/K2")
     return k1, k2
 
 
@@ -1271,8 +1312,6 @@ def phase9_mamba2(dev, cfg):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import decode_attention as K
-    from repro_torch.kernels import ssd_scan as K3
     from repro_torch.models import model as MD
     from repro_torch.models import ssm as SSM
     from repro_torch.serving.engine import EngineMetrics, ServingEngine
@@ -1299,29 +1338,14 @@ def phase9_mamba2(dev, cfg):
     reqs = [Request(rid=i, arrival=i * 0.01,
                     prompt_len=int(rng.integers(64, 513)), max_new_tokens=32)
             for i in range(16)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    K3.LAUNCHES = K3.LAUNCHES_TC = K3.LAUNCHES_F32 = K3.PLAIN_CALLS = 0
-    K.LAUNCHES = K.PLAIN_CALLS = 0
-    t0 = time.perf_counter()
-    m = eng.run_trace(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain_calls = K3.LAUNCHES, K3.PLAIN_CALLS
-    by_kernel = (K3.LAUNCHES_TC, K3.LAUNCHES_F32)
-    k1_calls = K.LAUNCHES + K.PLAIN_CALLS
-    peak = torch.cuda.max_memory_allocated()
     log(f"mamba2 serve: {len(reqs)} requests, prompts "
         f"{[r.prompt_len for r in reqs]}, 32 new tokens each, decode "
         f"rounds replayed from the CUDA graph")
-    log(f"mamba2 serve: rounds={m.decode_rounds} tokens_out={m.tokens_out} "
-        f"prefills={m.prefills} wall_s={wall:.3f} "
-        f"tokens_per_s={m.tokens_out / wall:.1f} "
-        f"round_ms_median={1e3 * statistics.median(m.round_s):.3f} "
-        f"round_ms_p90={1e3 * float(np.percentile(m.round_s, 90)):.3f} "
-        f"prefill_ms_median={1e3 * statistics.median(m.prefill_s):.3f} "
-        f"prefill_ms_mean={1e3 * statistics.mean(m.prefill_s):.3f} "
-        f"max_memory_allocated_gb={peak / 1e9:.3f}")
+    m, counts = serve_trace(eng, reqs, "mamba2 serve")
+    launches, plain_calls = counts[("K3", "LAUNCHES")], \
+        counts[("K3", "PLAIN_CALLS")]
+    by_kernel = (counts[("K3", "LAUNCHES_TC")], counts[("K3", "LAUNCHES_F32")])
+    k1_calls = counts[("K1", "LAUNCHES")] + counts[("K1", "PLAIN_CALLS")]
     # a decode round reads every weight once (the tied embedding table as
     # the LM head) and reads and writes the 8 slots' state
     round_bytes = weight_bytes + 2 * state_bytes
@@ -1334,8 +1358,6 @@ def phase9_mamba2(dev, cfg):
         f"{m.prefills} prefills = {cfg.num_layers * m.prefills}; tensor-core "
         f"kernel {by_kernel[0]}, FMA kernel {by_kernel[1]}), plain "
         f"calls={plain_calls}, K1 calls={k1_calls}")
-    if not all(r.phase.value == "done" and r.generated == 32 for r in reqs):
-        raise AssertionError("not every mamba2 request finished")
     if launches != cfg.num_layers * m.prefills or plain_calls or k1_calls \
             or by_kernel != (launches, 0):
         raise AssertionError("mamba2 prefill did not run through K3's "
@@ -1503,34 +1525,17 @@ def phases_llama3(dev):
     reqs = [Request(rid=i, arrival=i * 0.01,
                     prompt_len=int(rng.integers(64, 513)), max_new_tokens=32)
             for i in range(16)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    K.LAUNCHES = 0
-    K.PLAIN_CALLS = 0
-    t0 = time.perf_counter()
-    m = eng.run_trace(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain_calls = K.LAUNCHES, K.PLAIN_CALLS
-    peak = torch.cuda.max_memory_allocated()
     log(f"serve: {len(reqs)} requests, prompts "
         f"{[r.prompt_len for r in reqs]}, 32 new tokens each, decode "
         f"rounds replayed from the CUDA graph")
-    log(f"serve: rounds={m.decode_rounds} tokens_out={m.tokens_out} "
-        f"prefills={m.prefills} wall_s={wall:.3f} "
-        f"tokens_per_s={m.tokens_out / wall:.1f} "
-        f"round_ms_median={1e3 * statistics.median(m.round_s):.3f} "
-        f"round_ms_p90={1e3 * float(np.percentile(m.round_s, 90)):.3f} "
-        f"prefill_ms_median={1e3 * statistics.median(m.prefill_s):.3f} "
-        f"prefill_ms_mean={1e3 * statistics.mean(m.prefill_s):.3f} "
-        f"max_memory_allocated_gb={peak / 1e9:.3f}")
+    m, counts = serve_trace(eng, reqs, "serve")
+    launches, plain_calls = counts[("K1", "LAUNCHES")], \
+        counts[("K1", "PLAIN_CALLS")]
     embed_bytes = params["embed"].numel() * params["embed"].element_size()
     log(f"serve: decode-round bound from weight reads alone "
         f"{(weight_bytes - embed_bytes) / HBM_BYTES_PER_S * 1e3:.3f} ms")
     log(f"serve: K1 launches={launches} (32 x {m.decode_rounds} rounds = "
         f"{32 * m.decode_rounds}), plain calls={plain_calls}")
-    if not all(r.phase.value == "done" and r.generated == 32 for r in reqs):
-        raise AssertionError("not every request finished")
     if launches != cfg.num_layers * m.decode_rounds or plain_calls:
         raise AssertionError("decode attention did not run through K1")
     ab_solo_rounds(eng, cfg, "serve")
@@ -1627,6 +1632,476 @@ def phases_llama3(dev):
                                           "colocated_serve": k2_7}))
 
 
+# ------------------------------------------- sliding window and MoE ----
+def serve_trace(eng, reqs, label):
+    """Serve `reqs` (decode rounds replayed from the engine's graph) with
+    every kernel counter set to 0 just before; print the serving numbers
+    and return (metrics, kernel counts)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    m = eng.run_trace(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label}: rounds={m.decode_rounds} tokens_out={m.tokens_out} "
+        f"prefills={m.prefills} wall_s={wall:.3f} "
+        f"tokens_per_s={m.tokens_out / wall:.1f} "
+        f"round_ms_median={1e3 * statistics.median(m.round_s):.3f} "
+        f"round_ms_p90={1e3 * float(np.percentile(m.round_s, 90)):.3f} "
+        f"prefill_ms_median={1e3 * statistics.median(m.prefill_s):.3f} "
+        f"prefill_ms_mean={1e3 * statistics.mean(m.prefill_s):.3f} "
+        f"max_memory_allocated_gb={peak / 1e9:.3f}")
+    if not all(r.phase.value == "done" and r.generated == r.max_new_tokens
+               for r in reqs):
+        raise AssertionError(f"{label}: not every request finished")
+    return m, counts
+
+
+def check_k1_on_ring(K, cache, q, window, label):
+    """K1 over one layer's ring cache (every slot at the last position its
+    ring holds, per kv_pos), read as the model's adapter reads it: against
+    its plain version (`check_k1`, which also times it beside its bound,
+    the plain version and SDPA; and the split lengths scanned) and against
+    the windowed dense oracle. Returns (kernels-line numbers, the
+    oracle's max error)."""
+    from repro_torch.models import attention as A
+    kc, vc, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
+    B, S, KV, hd = kc.shape
+    pos = kv_pos.amax(dim=1)
+    lengths = torch.clamp(pos + 1, max=S).to(torch.int32)
+    n = S // 64
+    args = (q, kc.reshape(B * n, 64, KV, hd), vc.reshape(B * n, 64, KV, hd),
+            torch.arange(B * n, dtype=torch.int32,
+                         device=q.device).reshape(B, n), lengths)
+    row = check_k1(K, *args, label=f"{label}, positions {pos.tolist()}, "
+                   f"ring {S}, lengths {lengths.tolist()}")
+    k1_split_scan(K, args, label)
+    got = K.paged_decode_attention(*args).float()
+    oracle = A.decode_attn_ref(q, kc, vc, kv_pos, pos, window).float()
+    torch.cuda.synchronize()
+    err = (got - oracle).abs().max().item()
+    tol = K1_TOL[q.dtype]
+    log(f"K1 {label} vs the windowed oracle decode_attn_ref(window="
+        f"{window}): max_abs_err={err:.3e} (tol {tol})")
+    if not torch.allclose(got, oracle, atol=tol, rtol=tol):
+        raise AssertionError(f"K1 disagrees with the windowed oracle: "
+                             f"{label}")
+    return row, err
+
+
+def profile_prefill(label, params, cfg, n_tokens, seed):
+    """One admission's prefill (1 x n_tokens, through the kernels) in a
+    profiler window, after one unprofiled: wall, device busy, top
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as MD
+    dev = params["embed"].device
+    toks = torch.randint(0, cfg.vocab_size, (1, n_tokens), device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed))
+    cache = MD.init_cache(cfg, 1, n_tokens, device=dev)
+    MD.prefill(params, cfg, {"tokens": toks}, cache, use_kernels=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MD.prefill(params, cfg, {"tokens": toks}, cache, use_kernels=True)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_us = sum(r[1] for r in rows)
+    log(f"{label} prefill of 1 x {n_tokens} tokens, profiled: wall "
+        f"{window * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, device "
+        f"events {sum(r[2] for r in rows)}")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:5]:
+        log(f"{label} prefill profile:   {us / 1e3:9.3f} ms  x{count:<5d} "
+            f"{key[:80]}")
+
+
+def phase11_danube(dev):
+    """h2o-danube-1.8b, whole, served past its 4,096-token window: 16
+    prompts of 3,900-4,500 tokens, K1 on every decode layer of every round
+    over rings that wrapped; the eager/graphed A/B; K1 at hd 80 on a
+    wrapped ring of the served cache. Returns the kernels-line numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as K
+    from repro_torch.models import model as MD
+    from repro_torch.serving.engine import EngineMetrics, ServingEngine
+    from repro_torch.serving.request import Request
+    # ------------------------- 11. h2o-danube-1.8b past its window --
+    cfg = get_config("h2o-danube-1.8b")
+    t0 = time.perf_counter()
+    params = MD.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = tree_bytes(params)
+    log(f"h2o-danube-1.8b: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV of {cfg.head_dim}, "
+        f"window {cfg.window}; weights {weight_bytes / 1e9:.3f} GB bf16, "
+        f"random (seed 0), init {time.perf_counter() - t0:.2f} s")
+    eng = ServingEngine(cfg, params, max_slots=8, s_max=4608,
+                        use_kernels=True, device=dev)
+    ring = eng.cache["scan"]["k"].shape[2]
+    if ring != cfg.window or not eng.graphs:
+        raise AssertionError("danube: the cache is not a graphed ring of "
+                             "the window")
+    captured("danube decode step (8 slots, rings of 4096)", eng.precompile)
+    cache_bytes = tree_bytes(eng.cache["scan"])
+    eng.run_trace([Request(rid=-1, arrival=0.0, prompt_len=64,
+                           max_new_tokens=2)])       # warm-up, not counted
+    eng.metrics = EngineMetrics()
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, arrival=i * 0.01,
+                    prompt_len=int(rng.integers(3900, 4501)),
+                    max_new_tokens=32) for i in range(16)]
+    split = sum(r.prompt_len > ring for r in reqs)
+    wraps = sum(r.prompt_len <= ring < r.prompt_len + 31 for r in reqs)
+    log(f"danube serve: {len(reqs)} requests, prompts "
+        f"{[r.prompt_len for r in reqs]}, 32 new tokens each; {split} "
+        f"prefills keep the last {ring} of more tokens (the split write), "
+        f"{wraps} rings wrap during decode")
+    m, counts = serve_trace(eng, reqs, "danube serve")
+    k1, plain = counts[("K1", "LAUNCHES")], counts[("K1", "PLAIN_CALLS")]
+    read = weight_bytes - tree_bytes(params["embed"]) + cache_bytes
+    log(f"danube serve: K1 launches={k1} ({cfg.num_layers} x "
+        f"{m.decode_rounds} rounds = {cfg.num_layers * m.decode_rounds}), "
+        f"plain calls={plain}; decode-round bound from weight and ring "
+        f"reads {read / HBM_BYTES_PER_S * 1e3:.3f} ms (weights "
+        f"{weight_bytes / 1e9:.3f} GB less the embedding table, rings "
+        f"{cache_bytes / 1e9:.3f} GB)")
+    if k1 != cfg.num_layers * m.decode_rounds or plain:
+        raise AssertionError("danube decode did not run through K1")
+    if int(eng.cache["scan"]["kv_pos"].amax()) < ring:
+        raise AssertionError("danube: no ring wrapped")
+    # K1 at hd 80 on rings that wrapped in the prefill's split write: 8
+    # prompts past the window admitted (S % W from 1 to 404), held before
+    # their first decode round, then on the rings the engine served after
+    # 8 rounds, at the first and the last layer
+    late = [Request(rid=1000 + i, arrival=0.0, prompt_len=n,
+                    max_new_tokens=32)
+            for i, n in enumerate((4097, 4100, 4133, 4160, 4200, 4300, 4400,
+                                   4500))]
+    for r in late:
+        if not eng.try_admit(r, rng.integers(0, cfg.vocab_size,
+                                             size=r.prompt_len,
+                                             dtype=np.int32)):
+            raise AssertionError("danube: the K1 check's requests were not "
+                                 "admitted")
+    q = torch.randn((8, cfg.num_heads, cfg.head_dim), device=dev,
+                    generator=torch.Generator(dev).manual_seed(8)
+                    ).to(torch.bfloat16)
+    row, _ = check_k1_on_ring(
+        K, {n: t[0] for n, t in eng.cache["scan"].items()}, q, cfg.window,
+        "danube hd 80 (layer-0 rings of 8 admitted prompts of 4097-4500 "
+        "tokens)")
+    for _ in range(8):
+        eng.decode_round()
+    served = [check_k1_on_ring(
+        K, {n: t[layer] for n, t in eng.cache["scan"].items()}, q,
+        cfg.window, f"danube hd 80 (layer-{layer} rings served 8 decode "
+        f"rounds)")[1] for layer in (0, cfg.num_layers - 1)]
+    while eng.active_requests():
+        eng.decode_round()
+    ab_solo_rounds(eng, cfg, "danube serve")
+    profile_prefill("danube", params, cfg, 4000, seed=9)
+    pos = eng.cache["scan"]["kv_pos"][0].amax(dim=1) + 1
+    graphed_decode_bits("danube serve", params, cfg, eng.cache,
+                        torch.tensor(eng.last_token, device=dev),
+                        pos.to(torch.int32))
+    return dict(launches=k1, shape="B 8, H 32, KV 8, hd 80, bf16, rings of "
+                "4096 as 64 pages of 64", **row,
+                served_rings_oracle_max_abs_err=max(served))
+
+
+@contextlib.contextmanager
+def recording_moe(record):
+    """Call record(x, y, aux) after every MoE layer call in the block (a
+    replayed graph calls nothing)."""
+    from repro_torch.models import moe as M
+    plain = M.moe_forward
+
+    def recorded(p, x, *args, **kw):
+        y, aux = plain(p, x, *args, **kw)
+        record(x, y, aux)
+        return y, aux
+    M.moe_forward = recorded
+    try:
+        yield
+    finally:
+        M.moe_forward = plain
+
+
+def dropped_shares(into):
+    """A `recording_moe` record appending to `into` the dropped share of
+    each call on more than one token per row (a prefill's, a finetune
+    unit's); a decode step's single group never drops."""
+    def record(x, y, aux):
+        if x.shape[1] > 1:
+            into.append(aux["dropped_frac"].detach())
+    return record
+
+
+def dropped_line(label, shares):
+    d = torch.stack(shares).float().cpu()
+    log(f"{label}: MoE dropped_frac over {len(shares)} layer calls: mean "
+        f"{d.mean().item():.4f} max {d.max().item():.4f} min "
+        f"{d.min().item():.4f}")
+
+
+def moe_plain(p, x, cfg):
+    """mixtral's routed MoE layer, plainly: softmax top-k renormalised per
+    token, each assignment ranked within its expert by a one-hot cumsum in
+    (token, choice) order and dropped from rank C on (`moe_forward`'s
+    groups and capacity), then a loop over the experts, each running its
+    FFN on the tokens it kept and adding them back weighted. Returns
+    (y, dropped share, kept assignments per expert)."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    if S * k >= 2 * E:
+        G, T = B, S
+        C = max(int(round(T * k * cfg.capacity_factor / E)), 1)
+    else:
+        G, T = 1, B * S
+        C = min(T, max(8, 4 * (-(-T * k // E))))
+    xt = x.reshape(G, T, d)
+    logits = torch.einsum("gtd,de->gte", xt.float(), p["router"].float())
+    top_w, top_i = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+    top_w = (top_w / top_w.sum(dim=-1, keepdim=True)).reshape(G, T * k)
+    e_flat = top_i.reshape(G, T * k)
+    onehot = F.one_hot(e_flat, E)
+    rank = torch.gather(onehot.cumsum(dim=1), 2, e_flat[..., None])[..., 0] \
+        - 1
+    keep = rank < C
+    y = torch.zeros((G, T, d), dtype=torch.float32, device=x.device)
+    for g in range(G):
+        for e in range(E):
+            a = torch.nonzero((e_flat[g] == e) & keep[g])[:, 0]
+            h = xt[g, a // k]
+            act = F.silu((h @ p["gate"][e]).float()).to(x.dtype)
+            out = (act * (h @ p["up"][e])) @ p["down"][e]
+            y[g].index_add_(0, a // k, out.float() * top_w[g, a, None])
+    return (y.to(x.dtype).reshape(B, S, d), 1.0 - keep.float().mean(),
+            (onehot * keep[..., None]).sum(dim=(0, 1)))
+
+
+def moe_layer_inputs(params, cfg, toks):
+    """(x, y, dropped share) of every MoE layer in one forward without
+    grad on `toks`."""
+    from repro_torch.models import model as MD
+    inputs = []
+    with recording_moe(lambda x, y, aux: inputs.append(
+            (x, y, aux["dropped_frac"]))), torch.no_grad():
+        MD.forward(params, cfg, {"tokens": toks})
+    if len(inputs) != cfg.num_layers:
+        raise AssertionError("the forward did not run every MoE layer")
+    return inputs
+
+
+def check_moe_layers(params, cfg, seq_len):
+    """Every MoE layer's input on 2 x seq_len tokens, of the synthetic
+    corpus (a training micro-batch) and uniform (as the served prompts):
+    per layer, the experts' shares of the top-k assignments, the dropped
+    share and the mean cosine between the tokens' inputs (near 1: the
+    tokens look alike to the router, so they pick the same experts); then
+    `moe_forward` at full width on the first and the last layer's corpus
+    input against `moe_plain`, at the bf16 tolerance."""
+    from repro_torch.training.data import DataConfig, SyntheticCorpus
+    dev = params["embed"].device
+    corpus = torch.as_tensor(next(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, seq_len, 2, seed=0)).batches())["tokens"],
+        device=dev)
+    uniform = torch.randint(0, cfg.vocab_size, (2, seq_len), device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+    E, k = cfg.num_experts, cfg.top_k
+    p = params["scan"]["moe"]
+    for source, toks in (("uniform", uniform), ("corpus", corpus)):
+        inputs = moe_layer_inputs(params, cfg, toks)
+        for layer, (x, _, dropped) in enumerate(inputs):
+            logits = torch.einsum("btd,de->bte", x.float(),
+                                  p["router"][layer].float())
+            top_i = torch.topk(logits, k, dim=-1).indices
+            share = torch.bincount(top_i.reshape(-1), minlength=E).float() \
+                / top_i.numel()
+            xn = F.normalize(x.float(), dim=-1)
+            T = x.shape[1]
+            cos = ((xn.sum(dim=1).square().sum(dim=-1) - T) /
+                   (T * (T - 1))).mean()
+            log(f"mixtral MoE layer {layer:2d} on 2 x {seq_len} {source} "
+                f"tokens: expert shares "
+                f"{[round(v, 3) for v in share.tolist()]}, dropped "
+                f"{dropped.item():.4f}, mean token cosine {cos.item():.4f}")
+    for layer in (0, cfg.num_layers - 1):
+        x, y, dropped = inputs[layer]
+        lp = {n: t[layer] for n, t in p.items()}
+        expect, expect_dropped, kept = moe_plain(lp, x, cfg)
+        torch.cuda.synchronize()
+        err = (y.float() - expect.float()).abs().max().item()
+        log(f"mixtral MoE layer {layer} moe_forward vs moe_plain (d "
+            f"{cfg.d_model}, {E} experts of {cfg.moe_d_ff}, 2 x {seq_len} "
+            f"corpus tokens): max_abs_err={err:.3e} (tol 2e-2, max |y| "
+            f"{expect.float().abs().max().item():.3e}), dropped "
+            f"{dropped.item():.4f} / {expect_dropped.item():.4f}, kept per "
+            f"expert {kept.tolist()}")
+        if not torch.allclose(y.float(), expect.float(), atol=2e-2,
+                              rtol=2e-2) or \
+                dropped.item() != expect_dropped.item():
+            raise AssertionError(f"moe_forward disagrees with moe_plain at "
+                                 f"layer {layer}")
+
+
+def mixtral_units(cfg, params, seq_len):
+    """The finetune units on mixtral at full width (LoRA r 16 on q/k/v/o,
+    micro-batch 2 x seq_len, accum 1): one eager iteration (its MoE
+    dropped shares recorded), then two eager and two graphed iterations in
+    turns, synchronized per unit: medians by kind, K2's launches per
+    iteration by route. Returns the launches of one iteration."""
+    from repro_torch.core import colocation as C
+    from repro_torch.kernels import lora_matmul as K2
+    from repro_torch.training import peft as P
+    from repro_torch.training.data import (DataConfig, Prefetcher,
+                                           SyntheticCorpus)
+    pc = P.PeftConfig(micro_batch=2, seq_len=seq_len, accum=1)
+    staged = Prefetcher(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, pc.seq_len, pc.micro_batch, seed=0)).batches(),
+        pc.n_stage).stacked()
+    ft = P.init_ft_state(cfg, pc, params, 0, staged)
+    unit = P.make_unit_step(cfg, pc, params, use_kernels=True)
+    total = P.units_per_iteration(cfg, pc.accum)
+    per = k2_per_unit(cfg)
+    n_k2 = cfg.num_layers * (per["FWD"] + per["BWD"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    shares = []
+    t0 = time.perf_counter()
+    with recording_moe(dropped_shares(shares)):
+        ft, cold = timed_unit_run(unit, unit, ft, total)
+    iter_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    log(f"mixtral train: micro_batch 2 x seq {seq_len}, accum 1, LoRA r="
+        f"{cfg.lora.rank} on q/k/v/o; the first iteration of {total} units "
+        f"in {iter_s:.3f} s (synchronized per unit), iter={ft['iter']}, "
+        f"last_loss={float(ft['last_loss']):.4f} (ln V = "
+        f"{float(np.log(cfg.vocab_size)):.4f}), max_memory_allocated_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    log(f"mixtral train: K2 launches={counts[('K2', 'LAUNCHES')]} "
+        f"({cfg.num_layers} x {per['FWD']} + {cfg.num_layers} x "
+        f"{per['BWD']} = {n_k2}): wgmma {counts[('K2', 'LAUNCHES_WGMMA')]}, "
+        f"WMMA {counts[('K2', 'LAUNCHES_WMMA')]}, FMA "
+        f"{counts[('K2', 'LAUNCHES_F32')]}, plain calls "
+        f"{counts[('K2', 'PLAIN_CALLS')]}")
+    dropped_line("mixtral train (FWD units and the BWD units' recomputed "
+                 "forward, 2 x 1024 tokens, a group per row)", shares)
+    if counts[("K2", "LAUNCHES")] != n_k2 or \
+            counts[("K2", "LAUNCHES_WGMMA")] != n_k2 or \
+            counts[("K2", "PLAIN_CALLS")]:
+        raise AssertionError("mixtral's units did not run through K2's "
+                             "wgmma kernel")
+    if ft["iter"] != 1 or not np.isfinite(float(ft["last_loss"])):
+        raise AssertionError("mixtral's training iteration did not finish")
+    box = {}
+    captured("mixtral units (one graph per unit of an iteration)",
+             lambda: box.update(units=C.GraphedUnits(unit, ft)))
+    graphed = box.pop("units")
+
+    def graphed_step(state):
+        graphed.step(state)
+        return state
+    by_mode = {"eager": {}, "graphed": {}}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        before = (K2.LAUNCHES, K2.LAUNCHES_WGMMA)
+        ft, ts = timed_unit_run(unit, unit if mode == "eager"
+                                else graphed_step, ft, total)
+        for kind, t in ts.items():
+            by_mode[mode].setdefault(kind, []).extend(t)
+        moved = (K2.LAUNCHES - before[0], K2.LAUNCHES_WGMMA - before[1])
+        if moved != (n_k2, n_k2):
+            raise AssertionError(f"an iteration of {mode} mixtral units made "
+                                 f"K2 launches {moved}, not {n_k2} wgmma")
+    for kind in ("EMBED", "FWD", "HEAD", "BWD", "OPT"):
+        e, g = by_mode["eager"][kind], by_mode["graphed"][kind]
+        log(f"mixtral train: {kind:5s} units synchronized, two iterations "
+            f"each in turns: eager ms_median={1e3 * statistics.median(e):.3f}"
+            f", graphed ms_median={1e3 * statistics.median(g):.3f} (ratio "
+            f"{statistics.median(g) / statistics.median(e):.3f})")
+    log(f"mixtral train: an iteration of {total} units synchronized per "
+        f"unit, eager {sum(map(sum, by_mode['eager'].values())) / 2:.3f} s, "
+        f"graphed {sum(map(sum, by_mode['graphed'].values())) / 2:.3f} s")
+    peaks("mixtral train")
+    return n_k2
+
+
+def phase12_mixtral(dev, layers=16):
+    """mixtral-8x7b at published width with `layers` of its 32 layers
+    (32 do not fit one card): served (graphed, the A/B, a decode step held
+    bit for bit against the eager one), its MoE layers held against a plain
+    per-token dispatch, its units timed, then co-located as phase 7.
+    Returns the kernels-line numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    from repro_torch.serving.engine import EngineMetrics, ServingEngine
+    from repro_torch.serving.request import Request
+    # ------------------------------------- 12. mixtral-8x7b, 16 layers --
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    t0 = time.perf_counter()
+    params = MD.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = tree_bytes(params)
+    expert_bytes = tree_bytes([params["scan"]["moe"][n]
+                               for n in ("gate", "up", "down")])
+    log(f"mixtral-8x7b: {cfg.num_layers} of {full.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV of "
+        f"{cfg.head_dim}, {cfg.num_experts} experts of {cfg.moe_d_ff}, top-"
+        f"{cfg.top_k}, window {cfg.window}; weights {weight_bytes / 1e9:.3f}"
+        f" GB bf16 (experts {expert_bytes / 1e9:.3f}), random (seed 0), "
+        f"init {time.perf_counter() - t0:.2f} s")
+    check_moe_layers(params, cfg, seq_len=1024)
+    eng = ServingEngine(cfg, params, max_slots=8, s_max=1024,
+                        use_kernels=True, device=dev)
+    if not eng.graphs:
+        raise AssertionError("the engine does not replay a CUDA graph")
+    captured("mixtral decode step (8 slots)", eng.precompile)
+    eng.run_trace([Request(rid=-1, arrival=0.0, prompt_len=64,
+                           max_new_tokens=2)])       # warm-up, not counted
+    eng.metrics = EngineMetrics()
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, arrival=i * 0.01,
+                    prompt_len=int(rng.integers(64, 513)), max_new_tokens=32)
+            for i in range(16)]
+    shares = []
+    with recording_moe(dropped_shares(shares)):
+        m, counts = serve_trace(eng, reqs, "mixtral serve")
+    k1 = counts[("K1", "LAUNCHES")]
+    plain = sum(n for (_, c), n in counts.items() if c == "PLAIN_CALLS")
+    read = weight_bytes - tree_bytes(params["embed"])
+    log(f"mixtral serve: K1 launches={k1} ({cfg.num_layers} x "
+        f"{m.decode_rounds} rounds = {cfg.num_layers * m.decode_rounds}), "
+        f"plain calls={plain}; decode-round bound from weight reads "
+        f"{read / HBM_BYTES_PER_S * 1e3:.3f} ms (the dense dispatch runs "
+        f"every expert)")
+    dropped_line(f"mixtral prefill ({m.prefills} admissions x "
+                 f"{cfg.num_layers} layers)", shares)
+    if k1 != cfg.num_layers * m.decode_rounds or plain or \
+            len(shares) != cfg.num_layers * m.prefills:
+        raise AssertionError("mixtral decode did not run through K1")
+    ab_solo_rounds(eng, cfg, "mixtral serve")
+    profile_prefill("mixtral", params, cfg, 300, seed=9)
+    pos = (eng.cache["scan"]["kv_pos"][0] >= 0).sum(dim=-1).to(torch.int32)
+    graphed_decode_bits("mixtral serve", params, cfg, eng.cache,
+                        torch.tensor(eng.last_token, device=dev), pos)
+    train_launches = mixtral_units(cfg, params, seq_len=1024)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_colo, k2_colo = phase7_colocated(cfg, params, eng, m.round_s,
+                                        seq_len=1024, tag="colo mixtral")
+    return dict(k1={"serve_mixtral": k1, "colocated_serve_mixtral": k1_colo},
+                k2={"train_iteration_mixtral": train_launches,
+                    "colocated_serve_mixtral": k2_colo})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1674,8 +2149,28 @@ def main() -> int:
     t_phase = time.perf_counter()
     k3_colo = phase10_mamba2_colocated(mamba, mamba_params, mamba_eng,
                                        mamba_round_s, seq_len=1024)
-    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s; whole run "
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    del mamba_params, mamba_eng
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    danube = phase11_danube(dev)
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    mixtral = phase12_mixtral(dev)
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
+    llama["k1"]["launches_by_path"].update(serve_danube=danube["launches"],
+                                           **mixtral["k1"])
+    llama["k1"]["hd80"] = {k: v for k, v in danube.items()
+                           if k != "launches"}
+    llama["k2"]["launches_by_path"].update(mixtral["k2"])
 
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": [

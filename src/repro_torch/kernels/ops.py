@@ -7,9 +7,11 @@ flattens leading dimensions for the differentiable LoRA matmul kernel, as
 kernel predicates ragged edges itself. Unlike the reference's decode
 adapter (`repro/kernels/ops.py`), `decode_attention` never falls back to
 the dense oracle: a cache whose length 64 does not divide is read as one
-page per slot, and what the kernel cannot compute (windowed or int8
-caches) raises. `ssd_scan` is the forward-only SSD scan kernel's wrapper
-itself, with the contract of `models/ssm.py::ssd_chunked`; unlike
+page per slot, a windowed (SWA) ring goes through the kernel too (the
+reference's adapter sends every windowed cache to the oracle), and what
+the kernel cannot compute (int8 caches) raises. `ssd_scan` is the
+forward-only SSD scan kernel's wrapper itself, with the contract of
+`models/ssm.py::ssd_chunked`; unlike
 `repro/kernels/ops.py::ssd_scan` it pads no ragged tail (the kernel reads
 those rows as zeros) and has no head-block loop (TPU blocking).
 """
@@ -30,17 +32,21 @@ def decode_attention(q, kc, vc, kv_pos, positions, window: int = 0,
     q: (B, H, hd); kc/vc: (B, S, KV, hd); kv_pos: (B, S); positions: (B,).
     Slot b holds positions 0..positions[b] at indices 0..positions[b] (the
     engine's prefill + decode writes), so its length is positions[b] + 1
-    and kv_pos is not read. q is read in the cache's dtype and the output
-    is in the cache's dtype, as `decode_attn_ref`'s is."""
-    if window > 0:
-        raise NotImplementedError(
-            "windowed (SWA) caches are not ported yet (ROADMAP.md §1 item "
-            "5.1)")
+    and kv_pos is not read. A windowed cache is a ring of S <= window
+    slots (`attention.make_cache`) holding positions max(0, p - S + 1)..p,
+    which are exactly those `decode_attn_ref` accepts (kv_pos > p -
+    window), in some order: softmax over a set does not depend on its
+    order, and RoPE was applied before the write, so the kernel reads the
+    first min(p + 1, S) slots. q is read in the cache's dtype and the
+    output is in the cache's dtype, as `decode_attn_ref`'s is."""
     if scales is not None and scales[0] is not None:
         raise NotImplementedError(
             "int8 KV caches (kv_quant) are not ported yet (ROADMAP.md §1 "
             "item 5.7)")
     B, S, KV, hd = kc.shape
+    if window > 0 and S > window:
+        raise ValueError(f"a windowed cache holds at most window = {window} "
+                         f"slots, got {S}")
     ptok = page_tokens if S % page_tokens == 0 else S
     n_pages = S // ptok
     k_pages = kc.reshape(B * n_pages, ptok, KV, hd)
@@ -49,7 +55,10 @@ def decode_attention(q, kc, vc, kv_pos, positions, window: int = 0,
     # comes from the graph's pool, like K1's workspace
     page_table = torch.arange(B * n_pages, dtype=torch.int32,
                               device=kc.device).reshape(B, n_pages)
-    lengths = (positions + 1).to(torch.int32)
+    lengths = positions + 1
+    if window > 0:
+        lengths = lengths.clamp(max=S)
+    lengths = lengths.to(torch.int32)
     return _da.paged_decode_attention(q.to(kc.dtype).contiguous(), k_pages,
                                       v_pages, page_table, lengths,
                                       scale=scale)

@@ -18,6 +18,10 @@ run eagerly.
       --colocate --use-kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
       --smoke --device cpu --colocate --use-kernels
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --smoke --device cpu --colocate --use-kernels
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+      --smoke --device cpu --use-kernels
 """
 
 from __future__ import annotations

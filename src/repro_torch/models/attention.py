@@ -1,15 +1,19 @@
-"""Attention layers: the dense GQA/MHA half (+ qk_norm) of the reference.
+"""Attention layers: the GQA/MHA half (+ qk_norm, SWA windows) of the
+reference.
 
-Port of `repro/models/attention.py` for full (unwindowed, unquantized)
-caches. Two execution paths per layer:
+Port of `repro/models/attention.py` for full and sliding-window
+(unquantized) caches. Two execution paths per layer:
   * prefill/train: chunked flash attention over the whole sequence
   * decode: one-token attention against a KV cache (`decode_attn_ref`
     here; the CUDA kernel is swapped in by `kernels/ops.decode_attention`)
 
 Cache layout per layer (per-request absolute positions, so continuous
-batching works): k/v (B, S_max, KV, hd), kv_pos (B, S_max) int32 (-1 =
-empty). Unlike the reference, cache writes update the given tensors in
-place and return the same dict: a decode round then moves no cache copy.
+batching works): k/v (B, S, KV, hd), kv_pos (B, S) int32 (-1 = empty).
+A full cache has S = s_max and token p in slot p. A windowed (SWA) cache
+is a ring of S = min(s_max, window) slots, token p in slot p % S, so after
+position p is written it holds exactly positions max(0, p - S + 1)..p.
+Unlike the reference, cache writes update the given tensors in place and
+return the same dict: a decode round then moves no cache copy.
 """
 
 from __future__ import annotations
@@ -25,13 +29,16 @@ Params = Dict[str, torch.Tensor]
 
 
 def make_cache(cfg: ModelConfig, batch: int, s_max: int,
-               dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
-    """Empty per-layer cache (without the leading layer axis)."""
-    shape = (batch, s_max, cfg.num_kv_heads, cfg.head_dim)
+               dtype=torch.bfloat16, device=None, window: int = 0
+               ) -> Dict[str, torch.Tensor]:
+    """Empty per-layer cache (without the leading layer axis); a ring of
+    min(s_max, window) slots when windowed."""
+    eff = min(s_max, window) if window else s_max
+    shape = (batch, eff, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "kv_pos": torch.full((batch, s_max), -1, dtype=torch.int32,
+        "kv_pos": torch.full((batch, eff), -1, dtype=torch.int32,
                              device=device),
     }
 
@@ -63,7 +70,7 @@ def _out_proj(p: Params, o, cfg: ModelConfig, lora, lora_scale,
 
 
 def attn_prefill(p: Params, x, positions, cfg: ModelConfig, *,
-                 cache: Optional[Dict] = None, lora=None,
+                 window: int = 0, cache: Optional[Dict] = None, lora=None,
                  lora_scale: float = 0.0, use_kernels: bool = False):
     """Full-sequence attention. positions: (B, S) absolute. Returns (out,
     cache); the cache, when given, is written in place (None: the training
@@ -72,45 +79,63 @@ def attn_prefill(p: Params, x, positions, cfg: ModelConfig, *,
     q, k, v = _project_qkv(p, x, cfg, lora, lora_scale, use_kernels)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = L.flash_attention(q, k, v, causal=True, q_offset=positions[:, 0])
+    o = L.flash_attention(q, k, v, causal=True, window=window,
+                          q_offset=positions[:, 0])
     out = _out_proj(p, o, cfg, lora, lora_scale, use_kernels)
     if cache is not None:
-        cache = _cache_write_prefill(cache, k, v, positions)
+        cache = _cache_write_prefill(cache, k, v, positions, window)
     return out, cache
 
 
-def _cache_write_bulk(cache, k, v, positions):
-    """Scatter a token chunk (B, s, KV, hd) at `positions` (B, s), in place."""
+def _cache_write_bulk(cache, k, v, positions, window: int = 0):
+    """Scatter a token chunk (B, s, KV, hd) at `positions` (B, s), in
+    place; into slot p % S of the ring when windowed."""
+    S_max = cache["k"].shape[1]
+    slots = (positions % S_max if window else positions).long()
     bidx = torch.arange(k.shape[0], device=k.device)[:, None]
-    pos = positions.long()
-    cache["k"][bidx, pos] = k.to(cache["k"].dtype)
-    cache["v"][bidx, pos] = v.to(cache["v"].dtype)
-    cache["kv_pos"][bidx, pos] = positions.to(torch.int32)
+    cache["k"][bidx, slots] = k.to(cache["k"].dtype)
+    cache["v"][bidx, slots] = v.to(cache["v"].dtype)
+    cache["kv_pos"][bidx, slots] = positions.to(torch.int32)
     return cache
 
 
-def _cache_write_prefill(cache, k, v, positions):
-    """Contiguous prefill write from slot 0 (prompt positions are
-    arange-contiguous per request), in place."""
+def _cache_write_prefill(cache, k, v, positions, window: int = 0):
+    """Contiguous prefill write (prompt positions are arange-contiguous
+    per request, from 0), in place. A full cache takes the first S_max
+    tokens from slot 0, as does a ring of W slots a chunk of S <= W tokens
+    (token p in slot p % W = p). A ring takes of S > W tokens only the
+    last W, as two slice writes split at S % W."""
     S_max = cache["k"].shape[1]
-    S = min(k.shape[1], S_max)
-    cache["k"][:, :S] = k[:, :S].to(cache["k"].dtype)
-    cache["v"][:, :S] = v[:, :S].to(cache["v"].dtype)
-    cache["kv_pos"][:, :S] = positions[:, :S].to(torch.int32)
+    S = k.shape[1]
+    if not window or S <= S_max:
+        n = min(S, S_max)
+        cache["k"][:, :n] = k[:, :n].to(cache["k"].dtype)
+        cache["v"][:, :n] = v[:, :n].to(cache["v"].dtype)
+        cache["kv_pos"][:, :n] = positions[:, :n].to(torch.int32)
+        return cache
+    W = S_max
+    split = S % W
+    first = W - split
+    for name, t in (("k", k), ("v", v), ("kv_pos", positions)):
+        buf, t = cache[name], t[:, -W:].to(cache[name].dtype)
+        buf[:, split:] = t[:, :first]
+        if split:
+            buf[:, :split] = t[:, first:]
     return cache
 
 
 def attn_decode(p: Params, x, positions, cache: Dict, cfg: ModelConfig, *,
-                lora=None, lora_scale: float = 0.0,
+                window: int = 0, lora=None, lora_scale: float = 0.0,
                 decode_attn_fn: Optional[Callable] = None):
     """One-token decode. x: (B, 1, d); positions: (B,). Returns (out,
     cache); the new token's K/V are written into the cache in place."""
     q, k, v = _project_qkv(p, x, cfg, lora, lora_scale)
     q = L.apply_rope(q, positions[:, None], cfg.rope_theta)
     k = L.apply_rope(k, positions[:, None], cfg.rope_theta)
-    cache = _cache_write_bulk(cache, k, v, positions[:, None])
+    cache = _cache_write_bulk(cache, k, v, positions[:, None], window)
     fn = decode_attn_ref if decode_attn_fn is None else decode_attn_fn
-    o = fn(q[:, 0], cache["k"], cache["v"], cache["kv_pos"], positions)
+    o = fn(q[:, 0], cache["k"], cache["v"], cache["kv_pos"], positions,
+           window)
     out = _out_proj(p, o[:, None], cfg, lora, lora_scale)
     return out, cache
 

@@ -10,6 +10,14 @@ sides. Greedy argmax is taken on the device, with one host copy per round.
 `use_kernels` reaches prefill as well as decode (the reference engine
 passes it to decode only), so an SSM model's admissions run the SSD scan
 kernel. The slot insert copies every per-layer cache leaf, KV or SSM state.
+A decode round writes the last token at position context_len - 1, so the
+first decode token goes to position prompt_len; the reference writes it at
+context_len and never writes prompt_len, which leaves a stale slot that
+the decode kernel reads and the oracle masks (ROADMAP.md §3).
+A sliding-window model's cache is a ring of min(s_max, window) slots
+(`models/attention.py`) while positions still run to s_max - 1; the one-slot
+prefill cache is the same ring, and the page accounting counts the ring's
+tokens, not the context's (the reference's counts the context).
 
 On the card the decode step is a CUDA graph (`DecodeGraph`), captured at
 the first round or by `precompile` (the reference jits it at its first
@@ -124,10 +132,13 @@ class ServingEngine:
         # bf16 cache whatever the params' dtype, as in the reference engine
         self.cache = MD.init_cache(cfg, max_slots, s_max, device=self.device)
         self.metrics = EngineMetrics()
-        # page accounting (Harli's allocator plugs in via set_usable)
-        npages = num_pages or max_slots * (-(-s_max // page_tokens))
+        # page accounting (Harli's allocator plugs in via set_usable), of
+        # the tokens a slot holds: at most the ring's length when windowed
+        self.cache_len = cfg.effective_cache_len(s_max)
+        pages_per_seq = -(-self.cache_len // page_tokens)
+        npages = num_pages or max_slots * pages_per_seq
         self.pages = PageTableManager(spec_for(cfg, npages, page_tokens),
-                                      max_slots, -(-s_max // page_tokens))
+                                      max_slots, pages_per_seq)
         self.slots: List[Optional[Request]] = [None] * max_slots
         self.last_token = np.zeros((max_slots,), np.int32)
         # decode rounds replay a CUDA graph unless this is False (the
@@ -156,7 +167,8 @@ class ServingEngine:
     # ------------------------------------------------------------- admit --
     def try_admit(self, req: Request, prompt_tokens: np.ndarray) -> bool:
         slot = next((i for i, s in enumerate(self.slots) if s is None), None)
-        if slot is None or not self.pages.admit(slot, req.prompt_len):
+        if slot is None or not self.pages.admit(
+                slot, min(req.prompt_len, self.cache_len)):
             self.metrics.rejected_admissions += 1
             return False
         t0 = time.perf_counter()
@@ -205,7 +217,7 @@ class ServingEngine:
         positions = self._positions_host.numpy()
         positions[:] = 0
         for i, r in active:
-            positions[i] = r.context_len  # index of the token being written
+            positions[i] = r.context_len - 1  # position of the token fed
         np.copyto(self._tokens_host.numpy(), self.last_token)
         self.tokens.copy_(self._tokens_host, non_blocking=True)
         self.positions.copy_(self._positions_host, non_blocking=True)
@@ -230,7 +242,9 @@ class ServingEngine:
         self.metrics.decode_rounds += 1
         self.metrics.round_batch_sizes.append(len(active))
         for i, r in active:
-            if not self.pages.extend(r.slot, 1):
+            # a full ring takes the token in place of its oldest
+            if self.pages.lengths[r.slot] < self.cache_len and \
+                    not self.pages.extend(r.slot, 1):
                 continue  # memory pressure: request stalls this round
             self.last_token[i] = next_tokens[i]
             r.generated += 1

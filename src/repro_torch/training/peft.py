@@ -205,10 +205,13 @@ class UnitEngine:
 
     # ---------------------------------------------------------- device --
     def _layer(self, i, x, lora):
-        y, _ = MD.apply_layer(MD._layer(self.params["scan"], i), x,
-                              self.positions, self.cfg, self.scan_kind,
-                              mode="full", lora=lora, scale=self.scale,
-                              use_kernels=self.use_kernels)
+        # an MoE layer's aux loss is dropped, as the reference's units drop
+        # it (`repro/training/peft.py:156`, `:224`): unlike `loss_fn`, the
+        # units train on the CE alone
+        y, _, _ = MD.apply_layer(MD._layer(self.params["scan"], i), x,
+                                 self.positions, self.cfg, self.scan_kind,
+                                 mode="full", lora=lora, scale=self.scale,
+                                 use_kernels=self.use_kernels)
         return y
 
     def _embed(self, state, _u):

@@ -12,6 +12,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro import configs as jconfigs  # noqa: E402
 from repro.core.colocation import ColocatedRunner as JRunner  # noqa: E402
 from repro.core.predictor import \
     TwoStageLatencyPredictor as JPred  # noqa: E402
@@ -126,6 +127,73 @@ def test_colocated_round_equals_decode_plus_units(tiny, use_kernels):
     res, res_j = _f32(ft_f["residuals"]), np.asarray(ft_j["residuals"],
                                                      np.float32)
     assert np.linalg.norm(res - res_j) <= 2e-2 * np.linalg.norm(res_j)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_moe_colocated_round_equals_decode_plus_units(use_kernels):
+    """One co-located round of k = 4 units on mixtral's smoke config (MoE,
+    window 64; f32 weights and cache), its slots prefilled past the window
+    (70 tokens: the ring holds the last 64): bit for bit a decode step plus
+    4 separate units inside torch (K1's wrapper once per layer, K2's 4 per
+    FWD unit with the kernels on), and within tolerance of the JAX runner's
+    round (its decode on the oracle)."""
+    jcfg = jconfigs.smoke_config("mixtral-8x7b")
+    tcfg = smoke_config("mixtral-8x7b")
+    params_j = JMD.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    pc_j = JP.PeftConfig(micro_batch=2, seq_len=16, accum=1)
+    staged = jdata.Prefetcher(jdata.SyntheticCorpus(jdata.DataConfig(
+        jcfg.vocab_size, 16, 2, seed=4)).batches(), 2).stacked()
+    ft0_j = JP.init_ft_state(jcfg, pc_j, params_j, jax.random.PRNGKey(1),
+                             staged)
+    rng = np.random.default_rng(6)
+    for v in ft0_j["adapters"]["scan"].values():
+        v["b"] = jnp.asarray(rng.normal(size=v["b"].shape).astype(np.float32)
+                             * 0.05)
+    ft0_j = jax.tree.map(np.asarray, ft0_j)
+    prompts = rng.integers(0, jcfg.vocab_size, size=(3, 70)).astype(np.int32)
+    _, cache0_j = JMD.prefill(params_j, jcfg,
+                              {"tokens": jnp.asarray(prompts)},
+                              JMD.init_cache(jcfg, 3, 96, dtype=jnp.float32))
+    cache0_j = jax.tree.map(np.asarray, cache0_j)
+    assert cache0_j["scan"]["k"].shape[2] == 64
+    tok = np.array([1, 2, 3], np.int32)
+    pos = np.full((3,), 70, np.int32)
+    lg_j, cache_j, ft_j = jax.tree.map(np.asarray, JRunner(
+        jcfg, params_j, jcfg, params_j, pc_j, k_max=4, donate=False
+    ).run_round(4, tok, pos, cache0_j, ft0_j))
+
+    params, ft0, cache0 = to_torch((params_j, ft0_j, cache0_j))
+    pc = TP.PeftConfig(micro_batch=2, seq_len=16, accum=1)
+    tok_t, pos_t = torch.from_numpy(tok), torch.from_numpy(pos)
+    runner = C.ColocatedRunner(tcfg, params, tcfg, params, pc, k_max=4,
+                               use_kernels=use_kernels)
+    k1, k2 = K1.PLAIN_CALLS, K2.PLAIN_CALLS
+    lg_f, cache_f, ft_f = runner.run_round(4, tok_t, pos_t, _clone(cache0),
+                                           _clone(ft0))
+    # decode: one K1 call per layer; units EMBED, FWD x 2 (q/k/v/o), HEAD
+    assert K1.PLAIN_CALLS - k1 == (2 if use_kernels else 0)
+    assert K2.PLAIN_CALLS - k2 == (8 if use_kernels else 0)
+    lg_s, cache_s = TMD.decode_step(params, tcfg, tok_t, pos_t,
+                                    _clone(cache0), use_kernels=use_kernels)
+    ft_s = TP.run_units(TP.make_unit_step(tcfg, pc, params,
+                                          use_kernels=use_kernels),
+                        _clone(ft0), 4)
+    assert torch.equal(lg_f, lg_s)
+    for a, b in zip(tree_leaves(cache_f), tree_leaves(cache_s)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(ft_f), tree_leaves(ft_s)):
+        assert (a == b) if isinstance(a, int) else torch.equal(a, b)
+
+    np.testing.assert_allclose(_f32(lg_f), lg_j, atol=2e-4, rtol=2e-4)
+    for name in ("k", "v", "kv_pos"):
+        np.testing.assert_allclose(_f32(cache_f["scan"][name]),
+                                   cache_j["scan"][name], atol=2e-4,
+                                   rtol=2e-4)
+    res, res_j = _f32(ft_f["residuals"]), np.asarray(ft_j["residuals"],
+                                                     np.float32)
+    assert np.linalg.norm(res - res_j) <= 2e-2 * np.linalg.norm(res_j)
+    assert float(ft_f["loss"]) == pytest.approx(float(ft_j["loss"]),
+                                                rel=1e-2)
 
 
 SSM_TINY = dict(TINY, family="ssm", d_ff=0, ssm_state=16, ssm_headdim=16,
@@ -375,3 +443,22 @@ def test_serve_entry_point_colocates_on_cpu():
                     "--s-max", "64", "--k-max", "2", "--qos-s", "10"])
     assert m.prefills == 3 and m.decode_rounds > 0
     assert m.ft_units == 2 * m.decode_rounds     # a 10 s target admits k_max
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("colocate", [False, True])
+def test_serve_entry_point_runs_the_windowed_models_on_cpu(arch, colocate):
+    """`launch/serve.py --arch mixtral-8x7b | h2o-danube-1.8b --smoke
+    --device cpu --use-kernels [--colocate]`: s_max 96 against the smoke
+    window of 64, so profiling decodes on a wrapped ring; K1's wrapper
+    once per layer per round."""
+    k1 = K1.PLAIN_CALLS
+    argv = ["--smoke", "--device", "cpu", "--use-kernels", "--arch", arch,
+            "--requests", "3", "--slots", "2", "--s-max", "96"]
+    if colocate:
+        argv += ["--colocate", "--k-max", "2", "--qos-s", "10"]
+    m = serve.main(argv)
+    assert m.prefills == 3 and m.decode_rounds > 0
+    assert K1.PLAIN_CALLS - k1 >= 2 * m.decode_rounds
+    if colocate:
+        assert m.ft_units == 2 * m.decode_rounds

@@ -92,7 +92,7 @@ def test_adapter_raises_where_the_kernel_does_not_apply():
     kc = torch.zeros(1, 64, 1, 16)
     args = (torch.zeros(1, 2, 16), kc, kc, torch.zeros(1, 64, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="window"):    # a ring is <= window
         tops.decode_attention(*args, window=8)
     with pytest.raises(NotImplementedError):
         tops.decode_attention(*args, scales=(torch.ones(1, 64),) * 2)

@@ -14,7 +14,11 @@ prefill through K3 against the plain scan; and the CUDA graphs of the
 decode step and the co-located round (on llama3 and mamba2 smoke widths,
 kernels on) against eager rounds, bit for bit, with `precompile` leaving
 the cache and the finetune state as they were and each replay counting
-its captured launches. Each skips
+its captured launches; K1 over a wrapped sliding-window ring at hd 80
+(h2o-danube-1.8b) and 128 against its plain version and the windowed
+oracle, the MoE layer at decode and prefill size run with host
+synchronisation forbidden, and the graphed decode step, rounds and engine
+on the sliding-window and MoE smoke configs too. Each skips
 with a reason where no CUDA device is present. This file
 imports no JAX (the machine with the card has none), so run it there with
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -33,7 +37,9 @@ from repro_torch.kernels import decode_attention as K  # noqa: E402
 from repro_torch.kernels import lora_matmul as K2  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ssd_scan as K3  # noqa: E402
+from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import model as MD  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.serving.engine import DecodeGraph, ServingEngine  # noqa: E402
 from repro_torch.serving.request import Request  # noqa: E402
 from repro_torch.training import optimizer as topt  # noqa: E402
@@ -444,7 +450,11 @@ def _assert_same(a, b):
 
 def _served_cache(cfg, params, dev, lengths=(5, 17, 64, 1)):
     """A 4-slot bf16 cache with each slot prefilled (through the kernels)
-    as the engine's admissions fill it, and the next round's inputs."""
+    as the engine's admissions fill it, and the next round's inputs. A
+    sliding-window model (smoke window 64) gets prompts past its window,
+    so its rings have wrapped."""
+    if cfg.window:
+        lengths = (5, 17, 70, 100)
     cache = MD.init_cache(cfg, len(lengths), 128, device=dev)
     gen = torch.Generator(dev).manual_seed(4)
     last = []
@@ -462,7 +472,8 @@ def _served_cache(cfg, params, dev, lengths=(5, 17, 64, 1)):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b",
+                                  "h2o-danube-1.8b"])
 def test_graphed_decode_step_equals_eager(arch):
     """The decode step captured as a CUDA graph (kernels on) gives the
     eager step's logits, greedy tokens and cache bit for bit over three
@@ -478,7 +489,7 @@ def test_graphed_decode_step_equals_eager(arch):
     torch.cuda.synchronize()
     _assert_same(cache, saved)
     cache_e = _clone(cache)
-    per_round = cfg.num_layers if arch == "llama3-8b" else 0
+    per_round = 0 if arch == "mamba2-780m" else cfg.num_layers
     for _ in range(3):
         logits_e, _ = MD.decode_step(params, cfg, tok, pos, cache_e,
                                      use_kernels=True)
@@ -496,7 +507,7 @@ def test_graphed_decode_step_equals_eager(arch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b"])
 def test_graphed_rounds_equal_eager_rounds(arch):
     """Co-located rounds replayed from CUDA graphs (decode, then k unit
     graphs) equal eager rounds (decode_step, then k unit_step calls) bit
@@ -580,7 +591,8 @@ def test_replays_count_their_captured_launches():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b",
+                                  "h2o-danube-1.8b"])
 def test_graphed_engine_tokens_equal_eager_engine(arch):
     """An engine replaying its decode graph (the default on the card) and
     one running eager rounds give the same greedy tokens round by round
@@ -604,3 +616,79 @@ def test_graphed_engine_tokens_equal_eager_engine(arch):
         rounds += 1
     assert rounds == 11 and not engines[0].active_requests()
     _assert_same(engines[0].cache, engines[1].cache)
+
+
+# ------------------------------------------ sliding window and MoE ----
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [80, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k1_on_a_wrapped_ring_matches_plain_and_oracle(hd, dtype):
+    """Rings of 256 slots (window 256) holding positions up to 700, 300,
+    255 and 9 (three wrapped, one not): K1 through the model's adapter
+    (one launch) against its plain version on the same pages and lengths
+    and against the windowed dense oracle, at tests/test_kernels.py's
+    tolerances (bf16 2e-2: the oracle rounds its softmax weights to the
+    cache's type and the kernel does not; f32 1e-4)."""
+    dev = _card()
+    W, B, H, KV = 256, 4, 32, 8
+    gen = torch.Generator(dev).manual_seed(hd)
+    cache = {"k": torch.randn((B, W, KV, hd), generator=gen, device=dev
+                              ).to(dtype),
+             "v": torch.randn((B, W, KV, hd), generator=gen, device=dev
+                              ).to(dtype),
+             "kv_pos": torch.full((B, W), -1, dtype=torch.int32, device=dev)}
+    last = torch.tensor([700, 300, 255, 9], dtype=torch.int32, device=dev)
+    for b, p in enumerate(last.tolist()):
+        pos = torch.arange(max(p - W + 1, 0), p + 1, dtype=torch.int32,
+                           device=dev)
+        cache["kv_pos"][b, pos % W] = pos
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
+    before = K.LAUNCHES
+    got = kops.decode_attention(q, cache["k"], cache["v"], cache["kv_pos"],
+                                last, W)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES - before == 1
+    lengths = torch.clamp(last + 1, max=W)
+    table = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    plain = K.paged_decode_attention_plain(q, cache["k"], cache["v"], table,
+                                           lengths)
+    oracle = A.decode_attn_ref(q, cache["k"], cache["v"], cache["kv_pos"],
+                               last, W)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for expect in (plain, oracle):
+        torch.testing.assert_close(got.float(), expect.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(8, 1), (1, 300), (2, 1024)])
+def test_moe_layer_runs_without_host_synchronisation(B, S):
+    """The MoE layer at mixtral's expert count and top-k (narrow widths)
+    at a decode-size group (one group of 8 tokens), a prefill's and the
+    finetune units' (a group per row, capacity drops possible): with
+    `torch.cuda.set_sync_debug_mode("error")` any host synchronisation in
+    the routing, the sort-ranked slot plan, the dispatch, the expert
+    products or the combine raises; the result is finite, and equal to a
+    second call's bit for bit."""
+    dev = _card()
+    cfg = dataclasses.replace(smoke_config("mixtral-8x7b"), d_model=256,
+                              num_experts=8, top_k=2, moe_d_ff=512)
+    p = MOE.moe_init(torch.Generator(dev).manual_seed(0), cfg, 1)
+    p = {k: v[0] for k, v in p.items()}
+    x = torch.randn((B, S, cfg.d_model), device=dev,
+                    generator=torch.Generator(dev).manual_seed(1)
+                    ).to(torch.bfloat16)
+    MOE.moe_forward(p, x, cfg)                     # warm up, outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = MOE.moe_forward(p, x, cfg)
+        y2, aux2 = MOE.moe_forward(p, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and torch.isfinite(y.float()).all()
+    assert torch.equal(y, y2)
+    assert torch.equal(aux["dropped_frac"], aux2["dropped_frac"])
+    if S == 1:
+        assert float(aux["dropped_frac"]) == 0.0

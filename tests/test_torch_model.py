@@ -1,9 +1,13 @@
 """PyTorch port vs JAX reference, whole model: prefill logits and cache
 contents, then 8 greedy decode steps (same tokens, logits within 2e-4) with
 the port's kernel paths on and off, on the smoke configs of the paper's two
-models and of mamba2-780m (whose cache is the SSM state; its prefill runs
-the SSD scan's wrapper with the kernels on, its decode has no kernel). f32
-weights carried over from the JAX init by interop."""
+models, of mamba2-780m (whose cache is the SSM state; its prefill runs
+the SSD scan's wrapper with the kernels on, its decode has no kernel), of
+mixtral-8x7b (MoE, sliding window) and of h2o-danube-1.8b (sliding window);
+the last two also with prompts longer than their smoke window of 64, so
+that the prefill keeps the last 64 tokens of a wrapped ring and decode
+reads it through K1's wrapper. f32 weights carried over from the JAX init
+by interop."""
 
 import pytest
 
@@ -30,21 +34,34 @@ def _close(t, j):
                                np.asarray(j, np.float32), atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2.5-7b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2.5-7b", "mamba2-780m",
+                                  "mixtral-8x7b", "h2o-danube-1.8b"])
 def test_prefill_and_greedy_decode_match_reference(arch):
+    _prefill_and_greedy_decode(arch, S, S_MAX)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("prompt", [64, 100])
+def test_prompts_past_the_window_match_reference(arch, prompt):
+    """A prompt of the window's length and one past it (the ring's split
+    write at 100 % 64), then 8 decode steps that wrap the ring again."""
+    _prefill_and_greedy_decode(arch, prompt, 160)
+
+
+def _prefill_and_greedy_decode(arch, seq, s_max):
     jcfg, tcfg = jconfigs.smoke_config(arch), tconfigs.smoke_config(arch)
     params_j = JMD.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
     params_t = to_torch(params_j)
     tokens = np.random.default_rng(0).integers(
-        0, jcfg.vocab_size, size=(B, S)).astype(np.int32)
+        0, jcfg.vocab_size, size=(B, seq)).astype(np.int32)
     ssm = jcfg.family == "ssm"
 
-    cache_j = JMD.init_cache(jcfg, B, S_MAX, dtype=jnp.float32)
+    cache_j = JMD.init_cache(jcfg, B, s_max, dtype=jnp.float32)
     logits_j, cache_j = jax.jit(lambda p, b, c: JMD.prefill(p, jcfg, b, c))(
         params_j, {"tokens": jnp.asarray(tokens)}, cache_j)
     caches_t = {}
     for use_kernels in (False, True):
-        cache_t = TMD.init_cache(tcfg, B, S_MAX, dtype=torch.float32,
+        cache_t = TMD.init_cache(tcfg, B, s_max, dtype=torch.float32,
                                  device="cpu")
         before = K3.PLAIN_CALLS
         logits_t, caches_t[use_kernels] = TMD.prefill(
@@ -60,7 +77,7 @@ def test_prefill_and_greedy_decode_match_reference(arch):
     decode_j = jax.jit(lambda p, t, q, c: JMD.decode_step(p, jcfg, t, q, c))
     tok = np.array(jnp.argmax(logits_j, axis=-1), np.int32)
     for step in range(STEPS):
-        pos = np.full((B,), S + step, np.int32)
+        pos = np.full((B,), seq + step, np.int32)
         logits_j, cache_j = decode_j(params_j, jnp.asarray(tok),
                                      jnp.asarray(pos), cache_j)
         next_j = np.array(jnp.argmax(logits_j, axis=-1), np.int32)

@@ -4,9 +4,11 @@ ServingEngine on the same weights.
 
 The reference engine's `_insert_slot_cache` writes `dst.at[slot]` on caches
 whose leading axis is the layer, so it puts layer 0 of the prefilled cache
-into layer `slot` of every slot. The port inserts at `[:, slot]`; the token
-comparison runs the reference with that one method corrected (a subclass in
-this file; the JAX package is unchanged)."""
+into layer `slot` of every slot, and its `decode_round` feeds the last token
+at position `context_len`, one past the token's own, so position prompt_len
+is never written. The port inserts at `[:, slot]` and feeds position
+`context_len - 1`; the token comparisons run the reference with both
+corrected (subclasses in this file; the JAX package is unchanged)."""
 
 import pytest
 
@@ -16,15 +18,19 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro import configs as jconfigs  # noqa: E402
 from repro.models import attention as JA  # noqa: E402
 from repro.models import model as JMD  # noqa: E402
 from repro.models.config import ModelConfig as JConfig  # noqa: E402
 from repro.serving import kv_cache as JKV  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
 from repro.serving.request import Request as JRequest  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.interop import to_numpy, to_torch  # noqa: E402
 from repro_torch.kernels import decode_attention as K  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ssd_scan as K3  # noqa: E402
+from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models import model as TMD  # noqa: E402
 from repro_torch.models.config import ModelConfig as TConfig  # noqa: E402
 from repro_torch.serving import kv_cache as TKV  # noqa: E402
@@ -98,6 +104,22 @@ class _JEngineSlotFixed(JEngine):
                                   self.cache, one_cache)
 
 
+class _JEngineRepaired(_JEngineSlotFixed):
+    """The slot-fixed reference engine whose decode step takes every
+    active slot's position one lower: `context_len - 1`, the position of
+    the token it feeds, as the port's engine does."""
+
+    def decode_round(self):
+        active = jnp.asarray([r is not None and r.phase.value == "decoding"
+                              for r in self.slots], jnp.int32)
+        jitted = self._decode
+        self._decode = lambda p, t, pos, c: jitted(p, t, pos - active, c)
+        try:
+            return super().decode_round()
+        finally:
+            self._decode = jitted
+
+
 def _drive(eng, reqs):
     """run_trace's loop, recording every request's greedy tokens."""
     toks = {r.rid: [] for r in reqs}
@@ -128,8 +150,8 @@ def test_engine_greedy_tokens_match_reference(request, family, use_kernels):
     cfg = TINY if family == "dense" else TINY_SSM
     params_j, params_t = request.getfixturevalue(
         "tiny" if family == "dense" else "tiny_ssm")
-    expect = _drive(_JEngineSlotFixed(JConfig(**cfg), params_j, max_slots=4,
-                                      s_max=64, use_kernels=use_kernels),
+    expect = _drive(_JEngineRepaired(JConfig(**cfg), params_j, max_slots=4,
+                                     s_max=64, use_kernels=use_kernels),
                     _trace(JRequest))
     before, before3 = K.PLAIN_CALLS, K3.PLAIN_CALLS
     eng = TEngine(TConfig(**cfg), params_t, max_slots=4, s_max=64,
@@ -141,6 +163,159 @@ def test_engine_greedy_tokens_match_reference(request, family, use_kernels):
         (cfg["num_layers"] * eng.metrics.prefills
          if use_kernels and family == "ssm" else 0)
     assert eng.metrics.prefills == 6 and eng.pages.pages_in_use == 0
+
+
+def _drive_forced(ref, eng, jreqs, treqs):
+    """Both engines in lockstep on the same prompts, the port's fed the
+    reference's greedy tokens (teacher forcing, so a pick that one side's
+    rounding flips does not fork the traces). Returns, per round, the
+    logits of the slots that decoded in it, (port, reference)."""
+    seen = {}
+    jitted = ref._decode
+
+    def ref_step(*args):
+        out = jitted(*args)
+        seen["ref"] = np.asarray(out[0], np.float32)
+        return out
+
+    def port_step(tokens, positions, cache):
+        out = TMD.decode_step(eng.params, eng.cfg, tokens, positions, cache,
+                              use_kernels=eng.use_kernels)
+        seen["port"] = out[0].float().numpy()
+        return out
+    ref._decode = ref_step
+    rounds, qi = [], 0
+    while True:
+        while qi < len(jreqs):
+            prompt = ref.rng.integers(0, ref.cfg.vocab_size,
+                                      size=jreqs[qi].prompt_len,
+                                      dtype=np.int32)
+            if not ref.try_admit(jreqs[qi], prompt):
+                break
+            assert eng.try_admit(treqs[qi], prompt)
+            qi += 1
+        if not ref.active_requests() and qi >= len(jreqs):
+            assert not eng.active_requests()
+            return rounds
+        live = [i for i, r in enumerate(ref.slots)
+                if r is not None and r.phase.value == "decoding"]
+        np.copyto(eng.last_token, ref.last_token)
+        ref.decode_round()
+        eng.decode_round(port_step)
+        rounds.append((seen["port"][live], seen["ref"][live]))
+
+
+# prompts below, at and past the smoke window of 64, and decodes that wrap
+# the ring; the longest context is 142 of s_max 160
+PAST_THE_WINDOW = [(40, 30), (64, 8), (90, 20), (130, 12), (12, 40), (70, 26)]
+
+
+def _past_the_window(R):
+    return [R(rid=i, arrival=i * 0.01, prompt_len=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(PAST_THE_WINDOW)]
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_engine_greedy_tokens_past_the_window_match_reference(arch,
+                                                              use_kernels):
+    """The sliding-window smoke configs (mixtral: MoE too) served on both
+    sides, f32 weights and the engines' bf16 caches, every slot's cache a
+    ring of 64 and the page accounting holding at most the ring's 4 pages
+    of 16 per slot. Kernels off: the same greedy tokens. Kernels on, the
+    port runs K1's wrapper once per layer per round over the rings, while
+    the reference's adapter sends every windowed cache to its windowed
+    oracle, which rounds the softmax weights to the cache's bf16 where K1
+    keeps them in f32 (ROADMAP.md §3); that flips greedy picks of the
+    random smoke model, so the port is fed the reference's tokens and
+    every round's logits agree within the bf16 tolerance of
+    test_kernels.py (2e-2) of the round's largest logit. (Elementwise
+    2e-2 does not hold: the two attentions' roundings reach the logits
+    through every layer and every cached key of earlier rounds.)
+    (bf16 weights: the two sides' roundings differ enough over 130-token
+    prompts to flip greedy picks even with the kernels off.)"""
+    jcfg, tcfg = jconfigs.smoke_config(arch), tconfigs.smoke_config(arch)
+    params_j = JMD.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    ref = _JEngineRepaired(jcfg, params_j, max_slots=4, s_max=160,
+                           use_kernels=use_kernels)
+    eng = TEngine(tcfg, to_torch(params_j), max_slots=4, s_max=160,
+                  use_kernels=use_kernels, device="cpu")
+    assert eng.cache["scan"]["k"].shape[2] == 64 == eng.cache_len
+    assert eng.pages.max_pages_per_seq == 4
+    before = K.PLAIN_CALLS
+    if use_kernels:
+        rounds = _drive_forced(ref, eng, _past_the_window(JRequest),
+                               _past_the_window(TRequest))
+        assert len(rounds) == eng.metrics.decode_rounds
+        for got, expect in rounds:
+            assert np.abs(got - expect).max() <= 2e-2 * np.abs(expect).max()
+    else:
+        expect = _drive(ref, _past_the_window(JRequest))
+        got = _drive(eng, _past_the_window(TRequest))
+        assert got == expect
+        assert all(len(t) == n for t, (_, n) in zip(got.values(),
+                                                    PAST_THE_WINDOW))
+    assert K.PLAIN_CALLS - before == (tcfg.num_layers * eng.metrics.
+                                      decode_rounds if use_kernels else 0)
+    assert eng.metrics.prefills == 6 and eng.pages.pages_in_use == 0
+    assert eng.metrics.tokens_out == sum(n for _, n in PAST_THE_WINDOW)
+
+
+def test_engine_decode_leaves_a_gap_at_the_prompt_length():
+    """A fault of the reference, repaired in the port: the reference's
+    `decode_round` feeds the token at `context_len` = prompt_len +
+    generated, and generated is 1 after the prefill, so the first decode
+    token goes to position P + 1 and P is never written. On a ring of W,
+    slot P % W then keeps the prefill's position P - W (outside the
+    window) for W rounds: K1 reads it and the windowed oracle masks it.
+    The port's engine writes P, so its ring holds exactly the window after
+    every round, and K1 over it agrees with the windowed oracle."""
+    jcfg = jconfigs.smoke_config("h2o-danube-1.8b")
+    tcfg = tconfigs.smoke_config("h2o-danube-1.8b")
+    params_j = JMD.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    P, W = 70, 64
+    prompt = np.arange(P, dtype=np.int32) * 3 % 256
+    ref = _JEngineSlotFixed(jcfg, params_j, max_slots=1, s_max=160)
+    eng = TEngine(tcfg, to_torch(params_j), max_slots=1, s_max=160,
+                  device="cpu")
+    assert ref.try_admit(JRequest(rid=0, arrival=0.0, prompt_len=P,
+                                  max_new_tokens=4), prompt)
+    assert eng.try_admit(TRequest(rid=0, arrival=0.0, prompt_len=P,
+                                  max_new_tokens=4), prompt)
+    layer0 = {n: t[0] for n, t in eng.cache["scan"].items()}
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(1, 4, 16)).astype(np.float32))
+
+    def k1_and_oracle(p, kv_pos, ring=layer0):
+        args = (q.to(torch.bfloat16), ring["k"], ring["v"], kv_pos,
+                torch.tensor([p], dtype=torch.int32), W)
+        return (kops.decode_attention(*args).float(),
+                TA.decode_attn_ref(*args).float())
+
+    def close(a, b):                 # the bf16 tolerance of test_kernels.py
+        return torch.allclose(a, b, atol=2e-2, rtol=2e-2)
+    assert close(*k1_and_oracle(P - 1, layer0["kv_pos"]))  # after prefill
+    ref.decode_round()
+    eng.decode_round()
+    ref_pos = np.asarray(ref.cache["scan"]["kv_pos"][0, 0])
+    assert P not in ref_pos and P + 1 in ref_pos
+    assert ref_pos[P % W] == P - W          # stale, outside the window
+    port_pos = layer0["kv_pos"][0].numpy()
+    assert P in port_pos and P + 1 not in port_pos
+    np.testing.assert_array_equal(np.sort(port_pos), np.arange(P - W + 1,
+                                                               P + 1))
+    for _ in range(3):                      # and after later rounds
+        assert close(*k1_and_oracle(int(port_pos.max()), layer0["kv_pos"]))
+        eng.decode_round()
+        port_pos = layer0["kv_pos"][0].numpy()
+    # on the reference's ring K1 reads the stale slot as if it held a
+    # position inside the window
+    ring = {n: to_torch(t[0]) for n, t in ref.cache["scan"].items()}
+    k1, oracle = k1_and_oracle(P + 1, ring["kv_pos"], ring)
+    counted = ring["kv_pos"].clone()
+    counted[0, P % W] = P
+    assert not close(k1, oracle)
+    assert close(k1, k1_and_oracle(P + 1, counted, ring)[1])
 
 
 def test_page_table_manager_matches_reference():

@@ -4,6 +4,8 @@
 engine on a carried-across `ft_state`). Small widths: the 3-layer d 64
 config of `tests/test_peft.py` and the smoke configs."""
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -151,7 +153,8 @@ def test_adamw_in_place_matches_functional_and_reference(opt):
 
 
 # ------------------------------------------------------- forward / loss --
-@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2.5-7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2.5-7b",
+                                  "h2o-danube-1.8b"])
 def test_forward_and_loss_fn_match_reference(arch):
     jcfg, tcfg = jconfigs.smoke_config(arch), tconfigs.smoke_config(arch)
     params_j = JMD.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
@@ -172,6 +175,154 @@ def test_forward_and_loss_fn_match_reference(arch):
     loss_t, metrics = TMD.loss_fn(params_t, tcfg, batch_t, adapters=ad_t)
     assert float(loss_t) == pytest.approx(float(loss_j), abs=1e-5, rel=1e-5)
     assert float(metrics["ce"]) == float(loss_t)
+
+
+def test_moe_loss_fn_with_aux_matches_reference():
+    """mixtral's smoke config (MoE, window 64) over 80 tokens, so the
+    window bites and the capacity drops some assignments: logits, the
+    summed load-balance loss, the CE and the total loss CE + 0.01 * aux /
+    num_layers match the reference's (f32, 2e-4), as do the adapters'
+    gradients of the total (relative Frobenius 2e-4)."""
+    jcfg = jconfigs.smoke_config("mixtral-8x7b")
+    tcfg = tconfigs.smoke_config("mixtral-8x7b")
+    params_j = JMD.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    ad_j = _nonzero_b(JMD.init_adapters(jcfg, jax.random.PRNGKey(1)), 7)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, jcfg.vocab_size, size=(2, 80)).astype(np.int32)
+    batch_j = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(tokens)}
+    params_t, ad_t, batch_t = to_torch((params_j, ad_j, batch_j))
+
+    logits_j, aux_j = JMD.forward(params_j, jcfg, batch_j, adapters=ad_j)
+    logits_t, aux_t = TMD.forward(params_t, tcfg, batch_t, adapters=ad_t)
+    np.testing.assert_allclose(_f32(logits_t), np.asarray(logits_j),
+                               atol=2e-4, rtol=2e-4)
+    assert float(aux_t) == pytest.approx(float(aux_j), rel=2e-4)
+    assert float(aux_t) > 0
+
+    def loss_j(ad):
+        return JMD.loss_fn(params_j, jcfg, batch_j, adapters=ad)
+    (total_j, m_j), grads_j = jax.value_and_grad(loss_j, has_aux=True)(ad_j)
+    ad = tree_map(lambda t: t.detach().requires_grad_(), ad_t)
+    total_t, m_t = TMD.loss_fn(params_t, tcfg, batch_t, adapters=ad)
+    total_t.backward()
+    total_t, m_t = total_t.detach(), {k: v.detach() for k, v in m_t.items()}
+    for name in ("ce", "aux"):
+        assert float(m_t[name]) == pytest.approx(float(m_j[name]), rel=2e-4)
+    assert float(total_t) == pytest.approx(float(total_j), rel=2e-4)
+    assert float(total_t) == pytest.approx(
+        float(m_t["ce"]) + TMD.MOE_AUX_COEF * float(m_t["aux"])
+        / tcfg.num_layers, rel=1e-6)
+    for got, expect in zip(tree_leaves(tree_map(lambda t: t.grad, ad)),
+                           jax.tree.leaves(grads_j)):
+        assert _frob_err(_f32(got), expect) <= 2e-4
+
+
+def test_units_drop_the_moe_aux_loss_that_train_step_keeps():
+    """On an MoE stack the layer units train on the CE alone, as the
+    reference's do (`repro/training/peft.py:156`, `:224` drop each layer's
+    aux), while `make_train_step` minimises CE + 0.01 * aux / layers: the
+    units' loss is the train step's CE bit for bit, not its total, and
+    their accumulated grads are the CE's gradient, not the total's. The
+    reference shows the same split: its units' loss is its `loss_fn`'s CE
+    metric."""
+    jcfg = dataclasses.replace(jconfigs.smoke_config("mixtral-8x7b"),
+                               lora=JLoRAConfig(rank=4))
+    tcfg = tconfigs.smoke_config("mixtral-8x7b")
+    params_j = JMD.init_params(jcfg, jax.random.PRNGKey(0))        # bf16
+    params = to_torch(params_j)
+    pc = TP.PeftConfig(micro_batch=2, seq_len=32, accum=1)
+    staged = tdata.Prefetcher(tdata.SyntheticCorpus(tdata.DataConfig(
+        tcfg.vocab_size, 32, 2, seed=6)).batches(), 2).stacked()
+    state = TP.init_ft_state(tcfg, pc, params, 0, staged)
+    state["adapters"] = to_torch(_nonzero_b(to_numpy(state["adapters"]), 9))
+    state["opt"] = topt.adamw_init(state["adapters"])
+    ad0 = tree_map(torch.clone, state["adapters"])
+    unit = TP.make_unit_step(tcfg, pc, params)
+    state = TP.run_units(unit, state, TP.n_units_per_mb(tcfg))
+    batch = {k: torch.as_tensor(v[0]) for k, v in staged.items()}
+    ad = tree_map(lambda t: t.detach().requires_grad_(), ad0)
+    with torch.enable_grad():
+        total, metrics = TMD.loss_fn(params, tcfg, batch, adapters=ad,
+                                     remat=False)
+        grads_total = torch.autograd.grad(total, tree_leaves(ad),
+                                          retain_graph=True)
+        grads_ce = torch.autograd.grad(metrics["ce"], tree_leaves(ad))
+    total, metrics = total.detach(), {k: v.detach()
+                                      for k, v in metrics.items()}
+    assert float(state["loss"]) == float(metrics["ce"])
+    # the difference of two f32 losses near 5.5: 1e-6 is a few ulps
+    assert float(total) - float(metrics["ce"]) == pytest.approx(
+        TMD.MOE_AUX_COEF * float(metrics["aux"]) / tcfg.num_layers,
+        abs=1e-6)
+    assert float(metrics["aux"]) > 0
+    for got, g_ce, g_tot in zip(tree_leaves(state["grads"]), grads_ce,
+                                grads_total):
+        assert torch.equal(got, g_ce)
+    assert any(not torch.equal(a, b) for a, b in zip(grads_ce, grads_total))
+
+    # the reference: its units' microbatch loss is its loss_fn's CE
+    pc_j = JP.PeftConfig(micro_batch=2, seq_len=32, accum=1)
+    state_j = JP.init_ft_state(jcfg, pc_j, params_j, jax.random.PRNGKey(1),
+                               staged)
+    unit_j = jax.jit(JP.make_unit_step(jcfg, pc_j, params_j))
+    for _ in range(JP.n_units_per_mb(jcfg)):
+        state_j = unit_j(state_j)
+    batch_j = {k: jnp.asarray(v[0]) for k, v in staged.items()}
+    total_j, m_j = JMD.loss_fn(params_j, jcfg, batch_j,
+                               adapters=state_j["adapters"])
+    assert float(state_j["loss"]) == pytest.approx(float(m_j["ce"]),
+                                                   rel=1e-2)
+    assert abs(float(total_j) - float(m_j["ce"])) > 1e-4
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_unit_engine_moe_matches_reference_units(use_kernels):
+    """mixtral's smoke config (LoRA on q/k/v/o only: the routed experts
+    take none) from the JAX units' ft_state (B drawn): a microbatch's
+    units give the reference's loss (1e-2) and accumulated grads (8e-2
+    relative Frobenius), the dense test's bf16 tolerances; 4 K2 calls per
+    FWD unit and 8 per BWD unit with the kernels on; then OPT on both
+    sides moves the adapters alike."""
+    jcfg = jconfigs.smoke_config("mixtral-8x7b")
+    tcfg = tconfigs.smoke_config("mixtral-8x7b")
+    params = JMD.init_params(jcfg, jax.random.PRNGKey(0))
+    staged = jdata.Prefetcher(jdata.SyntheticCorpus(jdata.DataConfig(
+        jcfg.vocab_size, 32, 2, seed=3)).batches(), 2).stacked()
+    pc_j = JP.PeftConfig(micro_batch=2, seq_len=32, accum=1)
+    state0 = JP.init_ft_state(jcfg, pc_j, params, jax.random.PRNGKey(1),
+                              staged)
+    state0["adapters"] = _nonzero_b(state0["adapters"], 11)
+    state0 = jax.tree.map(np.asarray, state0)
+    unit_j = jax.jit(JP.make_unit_step(jcfg, pc_j, params))
+    state_j = state0
+    for _ in range(JP.n_units_per_mb(jcfg)):
+        state_j = unit_j(state_j)
+
+    pc = TP.PeftConfig(micro_batch=2, seq_len=32, accum=1)
+    before = K2.PLAIN_CALLS
+    unit = TP.make_unit_step(tcfg, pc, to_torch(params),
+                             use_kernels=use_kernels)
+    state = TP.run_units(unit, to_torch(state0), TP.n_units_per_mb(tcfg))
+    assert K2.PLAIN_CALLS - before == (12 * tcfg.num_layers
+                                       if use_kernels else 0)
+    assert state["adapters"]["scan"].keys() == {"q", "k", "v", "o"}
+    assert float(state["loss"]) == pytest.approx(float(state_j["loss"]),
+                                                 rel=1e-2)
+    for got, expect in zip(tree_leaves(state["grads"]),
+                           jax.tree.leaves(state_j["grads"])):
+        assert _frob_err(_f32(got), expect) <= 8e-2
+    state = unit(state)                                     # OPT
+    state_j = unit_j(state_j)
+    assert state["iter"] == 1 and np.isfinite(float(state["last_loss"]))
+    # AdamW's first step moves each entry by about lr whatever its grad's
+    # size, so a bf16-noise grad of the other sign moves it the other way:
+    # the adapters agree within two of the port's own steps
+    for got, before, expect in zip(tree_leaves(state["adapters"]),
+                                   jax.tree.leaves(state0["adapters"]),
+                                   jax.tree.leaves(state_j["adapters"])):
+        step = np.abs(_f32(got) - before).max()
+        assert step > 0
+        assert np.abs(_f32(got) - np.asarray(expect)).max() <= 2 * step + 1e-7
 
 
 def test_chunked_xent_and_cross_entropy_match_reference():
@@ -436,7 +587,7 @@ def _addresses(tree, path=""):
     return {path: tree.data_ptr()} if isinstance(tree, torch.Tensor) else {}
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b"])
 def test_ft_state_tensors_keep_their_addresses(arch):
     """Every tensor of `ft_state` (x, the residuals, the loss and last
     loss, the adapters, AdamW's m and v, the accumulated grads, the staged
