@@ -51,7 +51,11 @@ Phases, in order; any failure ends the run with a nonzero exit:
      until the serving has run an iteration's worth of units and an OPT)
      served through graphed rounds and the QoS scheduler (the target by
      PRs 12-15's rule), K1 and K2 launches counted; and the mean k the
-     fitted predictor admits under the paper's 40 ms.
+     fitted predictor admits under the paper's 40 ms. Then the reference's
+     route: `fit_from_costmodel` on the cost model of llama3-8b on the H100
+     spec with the committed constants, held beside the profile fit (solo
+     and co-located error on the measured points, mean k under 40 ms), and
+     16 requests served co-located with it under the same target.
 Then the llama3 objects are freed and the peak-memory count reset:
   8. the SSD scan kernels (K3) against their plain torch version on the
      card at mamba2-780m's prefill shapes (nh 48, hd 64, ds 128, chunk 256;
@@ -109,6 +113,20 @@ Then the mamba2 objects are freed:
      route, all wgmma; the dropped share in training), then eager and
      graphed iterations in turns, medians by kind; then co-located as
      phase 7, with a graphed 6-unit round bit-equal to the eager one.
+Then the cost model's H100 constants are fitted by least squares from the
+graphed solo rounds of phases 7 and 10 (mixtral's are printed, not fitted),
+phase 6's FWD and BWD units and phase 7's co-located rounds, and the
+committed and fitted constants' error printed at every profiled point.
+Then the mixtral objects are freed:
+ 13. the finetune entry point, `launch/train.py`'s `main(argv)` on
+     full-width llama3-8b with `--use-kernels` (micro-batch 2 x 1024): 6
+     steps uninterrupted (a checkpoint every 3), and 3 steps then
+     `--resume` to 6 in a second directory, the two final states held leaf
+     by leaf (adapters, m, v, t) and their checkpoints file by file; K2's
+     launches per step, all wgmma by its counters; 2 steps of
+     `--layer-units` (graphed units); a blocking save of the state timed
+     (the device-to-host copy alone and the whole commit) beside
+     `CostModel.checkpoint_time()` on the H100 spec.
 The second line from the end lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repository
 around it, the script exits nonzero and prints no result.
@@ -658,7 +676,8 @@ def phase6_train(cfg, params, seq_len):
     counted; then the next microbatch's units from that state (B no longer
     0) with K2 and without it, each timed synchronized per unit and as one
     stream, loss and grads compared. Returns K2's launches in the
-    iteration."""
+    iteration and the graphed units' median seconds by kind (the cost
+    model's unit points)."""
     from repro_torch.kernels import lora_matmul as K2
     from repro_torch.training import peft as P
     from repro_torch.training.data import (DataConfig, Prefetcher,
@@ -832,7 +851,8 @@ def phase6_train(cfg, params, seq_len):
         f"eager {e_it:.3f} s, graphed {g_it:.3f} s; K2 launches {n_k2} per "
         f"iteration either way (replays counted)")
     peaks("train")
-    return train_launches
+    return train_launches, {kind: statistics.median(ts)
+                            for kind, ts in by_mode["graphed"].items()}
 
 
 def kernel_counts():
@@ -994,14 +1014,17 @@ def serve_colocated(tag, cfg, params, eng, solo_round_s, seq_len):
                              "eager one")
     return dict(m=m, counts=counts,
                 kinds=[runner.unit_step.kind((u0 + j) % total_units)
-                       for j in range(m.ft_units)])
+                       for j in range(m.ft_units)],
+                runner=runner, ft=ft, pred=pred, solo=solo, colo=colo,
+                qos_s=qos_s, seen=seen, wall=wall, ks=ks,
+                violations=sched.violations)
 
 
 def phase7_colocated(cfg, params, eng, solo_round_s, seq_len, tag="colo"):
     """Co-located llama3-8b (and mixtral-8x7b in phase 12, under `tag`):
     `serve_colocated`, with K1's launches held at one per layer per round
     and K2's at the sum over the units run, all wgmma. Returns the K1 and
-    K2 launches of the serving."""
+    K2 launches of the serving and `serve_colocated`'s results."""
     # ----------------------------------------- 7. co-located serving --
     out = serve_colocated(tag, cfg, params, eng, solo_round_s, seq_len)
     m, counts = out["m"], out["counts"]
@@ -1019,7 +1042,7 @@ def phase7_colocated(cfg, params, eng, solo_round_s, seq_len, tag="colo"):
             k2w != k2 or plain:
         raise AssertionError(f"{tag}: co-located rounds did not run through "
                              "K1/K2")
-    return k1, k2
+    return k1, k2, out
 
 
 def phase10_mamba2_colocated(cfg, params, eng, solo_round_s, seq_len):
@@ -1027,7 +1050,7 @@ def phase10_mamba2_colocated(cfg, params, eng, solo_round_s, seq_len):
     engine. LoRA on the SSM family is the parallel `ssm_io` adapter, so the
     units launch no K2, and decode has no kernel: K3's launches come from
     the admissions' prefills (48 each), and no plain call is allowed.
-    Returns K3's launches."""
+    Returns K3's launches and `serve_colocated`'s results."""
     # --------------------------------- 10. co-located mamba2-780m --
     out = serve_colocated("colo mamba2", cfg, params, eng, solo_round_s,
                           seq_len)
@@ -1041,7 +1064,234 @@ def phase10_mamba2_colocated(cfg, params, eng, solo_round_s, seq_len):
     if k3 != cfg.num_layers * m.prefills or k3_tc != k3 or plain or others:
         raise AssertionError("co-located mamba2 did not run its prefills "
                              "through K3's tensor-core kernel alone")
-    return k3
+    return k3, out
+
+
+# ------------------------------------------------------------ cost model --
+# the finetune units of phases 6, 7, 10 and 12: micro-batch 2 x 1024 tokens
+FT_MICRO_BATCH, FT_SEQ = 2, 1024
+# the families whose graphed solo rounds fit the decode constants: mixtral's
+# are printed and left out, since the cost model counts the bytes of its
+# top-2 experts and the port's dense dispatch reads all 8 (as a batch of 8
+# tokens, routed to 2 experts each, mostly would)
+SOLO_FIT_FAMILIES = ("llama3-8b", "mamba2-780m")
+
+
+def cost_points(cfg, colo, unit_s=None):
+    """The measured points one family gives the cost-model fit: the
+    graphed solo and co-located rounds `serve_colocated` profiled, and
+    phase 6's graphed unit medians by kind."""
+    k_max = colo["runner"].k_max
+    return dict(cfg=cfg, solo=list(colo["solo"][1.0]),
+                colo=[(round(q_ft * k_max), bs, ctx, s_)
+                      for _, q_ft, bs, ctx, s_ in colo["colo"]],
+                units=dict(unit_s or {}))
+
+
+def phase7_costmodel(cfg, eng, colo, seq_len):
+    """Phase 7's cost-model route (the reference's `launch/serve.py`):
+    `fit_from_costmodel` on `CostModel(cfg, InstanceSpec())`, the H100 spec
+    with the committed constants, held beside the profile-fitted predictor
+    on the points phase 7 measured (solo and co-located error, mean k
+    admitted under the paper's 40 ms over the rounds phase 7 served), then
+    16 requests served co-located through the scheduler with it, under the
+    profile serving's target, on the same runner and graphs."""
+    from repro_torch.core import colocation as C
+    from repro_torch.core.costmodel import CostModel, InstanceSpec
+    from repro_torch.core.predictor import TwoStageLatencyPredictor
+    from repro_torch.core.scheduler import QoSScheduler, SchedulerConfig
+    from repro_torch.serving.engine import EngineMetrics
+    from repro_torch.serving.request import Request
+    from repro_torch.training import peft as P
+    # ------------------------------------- 7. the cost-model route --
+    inst = InstanceSpec()
+    t0 = time.perf_counter()
+    pred_cm = TwoStageLatencyPredictor(k_max=colo["runner"].k_max)
+    pred_cm.fit_from_costmodel(CostModel(cfg, inst),
+                               micro_batch=FT_MICRO_BATCH, ft_seq=seq_len)
+    log(f"colo costmodel: fit_from_costmodel on {inst.chip.name} (tp "
+        f"{inst.tp}) with the committed constants {inst.consts} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for name, pred in (("profile", colo["pred"]), ("costmodel", pred_cm)):
+        solo = [abs(pred.predict_solo(1.0, bs, ctx) - s_) / s_
+                for bs, ctx, s_ in colo["solo"][1.0]]
+        co = [abs(pred.predict_colo(q_ft, bs, ctx) - s_) / s_
+              for _, q_ft, bs, ctx, s_ in colo["colo"]]
+        sched40 = QoSScheduler(pred, SchedulerConfig(k_max=6))
+        k40 = [sched40.pick(bs, ctx, ft_ready=True, ft_units_available=6).k
+               for bs, ctx in colo["seen"]]
+        log(f"colo costmodel: the {name} fit on phase 7's measured points: "
+            f"solo mean/max err {statistics.mean(solo):.3f}/{max(solo):.3f}"
+            f", co-located mean/max err {statistics.mean(co):.3f}/"
+            f"{max(co):.3f}; under 40 ms it admits mean k="
+            f"{statistics.mean(k40):.3f} over phase 7's {len(k40)} rounds "
+            f"(k = 0 in {k40.count(0)})")
+    runner, ft = colo["runner"], colo["ft"]
+    sched = QoSScheduler(pred_cm, SchedulerConfig(qos_s=colo["qos_s"],
+                                                  k_max=6))
+    eng.metrics = EngineMetrics()
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=900 + i, arrival=i * 0.01,
+                    prompt_len=int(rng.integers(64, 513)), max_new_tokens=32)
+            for i in range(16)]
+    t0 = time.perf_counter()
+    m, ft = C.run_colocated_trace(eng, runner, sched, ft, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    upi = P.units_per_iteration(cfg, 1)
+    for name, m_, wall_, ks, viol in (
+            ("profile", colo["m"], colo["wall"], colo["ks"],
+             colo["violations"]),
+            ("costmodel", m, wall, [d.k for d in sched.decisions],
+             sched.violations)):
+        log(f"colo costmodel: served with the {name} fit at qos_s="
+            f"{colo['qos_s']:.4f}: {len(ks)} rounds, round_ms_median="
+            f"{1e3 * statistics.median(m_.round_s):.3f} round_ms_p90="
+            f"{1e3 * float(np.percentile(m_.round_s, 90)):.3f} mean_k="
+            f"{statistics.mean(ks):.3f} violations={viol} units="
+            f"{m_.ft_units} finetune_tokens_per_s="
+            f"{m_.ft_units / upi * FT_MICRO_BATCH * seq_len / wall_:.1f} "
+            f"(units / {upi} per iteration x {FT_MICRO_BATCH} x {seq_len} "
+            f"tokens / wall)")
+    if not all(rq.phase.value == "done" and rq.generated == 32
+               for rq in reqs):
+        raise AssertionError("colo costmodel: not every request finished")
+
+
+def nonneg_lstsq(X, y):
+    """Least squares with every coefficient >= 0: an active set that pins
+    the most negative coefficient to 0 and refits the rest."""
+    free = list(range(X.shape[1]))
+    coef = np.zeros(X.shape[1])
+    while free:
+        c, *_ = np.linalg.lstsq(X[:, free], y, rcond=None)
+        if (c >= 0).all():
+            coef[free] = c
+            break
+        free.pop(int(np.argmin(c)))
+    return coef
+
+
+def fit_h100_constants(points):
+    """The cost model's constants by least squares, in three stages, each
+    on the reference's formula with the earlier stages' values:
+      bw_eff, step and per-layer overheads from the graphed solo rounds of
+        SOLO_FIT_FAMILIES: t = bytes / (hbm_bw * bw_eff) + step + L * pl
+        (their decode is memory-bound at 8 slots);
+      mxu_eff from phase 6's graphed FWD and BWD units: t = flops / (peak *
+        mxu_eff) + c (c printed, not kept);
+      overlap_eff and the unit overhead from phase 7's co-located rounds:
+        t - max(t_mem, t_comp) - step - L * pl = (1 - overlap) * min(t_mem,
+        t_comp) + k * unit.
+    Every coefficient >= 0, each efficiency <= 1. bw_sat_quantum keeps the
+    committed (paper) value."""
+    from repro_torch.core.costmodel import (H100_CONSTANTS, CostConstants,
+                                            CostModel)
+    from repro_torch.hw import H100_SXM as chip
+    rows, y = [], []
+    for pt in points:
+        if pt["cfg"].name in SOLO_FIT_FAMILIES:
+            cm = CostModel(pt["cfg"])
+            for bs, ctx, s_ in pt["solo"]:
+                rows.append([cm.decode_work(bs, ctx).bytes_hbm / chip.hbm_bw,
+                             1.0, pt["cfg"].num_layers])
+                y.append(s_)
+    rows, y = np.asarray(rows), np.asarray(y)
+    inv_bw, step, per_layer = nonneg_lstsq(rows, y)
+    if inv_bw < 1.0:                     # faster than the HBM peak: pin it
+        inv_bw = 1.0
+        step, per_layer = nonneg_lstsq(rows[:, 1:], y - rows[:, 0])
+    llama = next(pt for pt in points if pt["units"])
+    cm = CostModel(llama["cfg"])
+    kinds = ("FWD", "BWD")
+    X = np.asarray([[cm.unit_work(FT_MICRO_BATCH, FT_SEQ, backward=kind ==
+                                  "BWD").flops / chip.peak_flops_bf16, 1.0]
+                    for kind in kinds])
+    inv_mxu, unit_c = nonneg_lstsq(X, np.asarray([llama["units"][k]
+                                                  for k in kinds]))
+    inv_mxu = max(inv_mxu, 1.0)
+    bw, peak = chip.hbm_bw / inv_bw, chip.peak_flops_bf16 / inv_mxu
+    L = llama["cfg"].num_layers
+    u = cm.avg_unit_work(FT_MICRO_BATCH, FT_SEQ)
+    rows, y = [], []
+    for k, bs, ctx, s_ in llama["colo"]:
+        d = cm.decode_work(bs, ctx)
+        t_mem = (d.bytes_hbm + k * u.bytes_hbm) / bw
+        t_comp = (d.flops + k * u.flops) / peak
+        rows.append([min(t_mem, t_comp), k])
+        y.append(s_ - max(t_mem, t_comp) - step - L * per_layer)
+    rows, y = np.asarray(rows), np.asarray(y)
+    hidden_not, unit = nonneg_lstsq(rows, y)
+    if hidden_not > 1.0:                 # more than serial: pin to serial
+        hidden_not = 1.0
+        (unit,) = nonneg_lstsq(rows[:, 1:], y - rows[:, 0])
+    fitted = CostConstants(
+        mxu_eff=float(1.0 / inv_mxu), bw_eff=float(1.0 / inv_bw),
+        overlap_eff=float(1.0 - hidden_not), step_overhead_s=float(step),
+        per_layer_overhead_s=float(per_layer), unit_overhead_s=float(unit),
+        bw_sat_quantum=H100_CONSTANTS.bw_sat_quantum)
+    return fitted, float(unit_c)
+
+
+def costmodel_fit(points):
+    """The cost model's H100 constants fitted from this run's points
+    (`fit_h100_constants`), printed; then the committed constants' and the
+    fitted ones' relative error at every profiled point: the solo rounds
+    of llama3, mamba2 and mixtral, phase 6's units (HEAD, which the model
+    has no term for, beside its average unit), phase 7's co-located
+    rounds."""
+    from repro_torch.core.costmodel import (H100_CONSTANTS, CostModel,
+                                            InstanceSpec)
+    # ------------------------------- 7. the cost model's H100 constants --
+    fitted, unit_c = fit_h100_constants(points)
+    log(f"costmodel fit: {fitted} (the FWD/BWD line's intercept "
+        f"{1e3 * unit_c:.3f} ms; solo rounds of {SOLO_FIT_FAMILIES} fit "
+        f"bw_eff and the overheads)")
+    log(f"costmodel fit: committed {H100_CONSTANTS}")
+    models = {"committed": H100_CONSTANTS, "fitted": fitted}
+    errs = {(name, group): [] for name in models
+            for group in ("solo", "unit", "colo")}
+
+    def line(label, group, measured, predict):
+        parts = []
+        for name, c in models.items():
+            t = predict(CostModel(pt["cfg"], InstanceSpec(consts=c),
+                                  noise_sigma=0.0))
+            err = (t - measured) / measured
+            errs[(name, group)].append(abs(err))
+            parts.append(f"{name} {1e3 * t:.3f} ms (rel err {err:+.3f})")
+        log(f"costmodel point: {label} measured {1e3 * measured:.3f} ms; "
+            + "; ".join(parts))
+
+    for pt in points:
+        name = pt["cfg"].name
+        for bs, ctx, s_ in pt["solo"]:
+            line(f"{name} solo bs={bs} ctx={ctx}", "solo", s_,
+                 lambda cm: cm.decode_solo(bs, ctx, noisy=False))
+        for kind in ("FWD", "BWD"):
+            if kind in pt["units"]:
+                line(f"{name} {kind} unit", "unit", pt["units"][kind],
+                     lambda cm: cm.unit_solo(FT_MICRO_BATCH, FT_SEQ,
+                                             backward=kind == "BWD",
+                                             noisy=False))
+        if "HEAD" in pt["units"]:
+            cm = CostModel(pt["cfg"], noise_sigma=0.0)
+            avg = sum(cm.unit_solo(FT_MICRO_BATCH, FT_SEQ, backward=b,
+                                   noisy=False) for b in (False, True)) / 2
+            log(f"costmodel point: {name} HEAD unit measured "
+                f"{1e3 * pt['units']['HEAD']:.3f} ms: no term prices it (a "
+                f"co-located round's units are priced by the average FWD "
+                f"and BWD work; the model's FWD and BWD units average "
+                f"{1e3 * avg:.3f} ms with the committed constants)")
+        if pt["units"]:
+            for k, bs, ctx, s_ in pt["colo"]:
+                line(f"{name} co-located k={k} bs={bs} ctx={ctx}", "colo",
+                     s_, lambda cm: cm.colocated_round(
+                         bs, ctx, k, FT_MICRO_BATCH, FT_SEQ, noisy=False))
+    for (name, group), e in errs.items():
+        if e:
+            log(f"costmodel error: {name} constants, {group} points: mean "
+                f"{statistics.mean(e):.3f} max {max(e):.3f} over {len(e)}")
 
 
 # ------------------------------------------------------------------ K3 ----
@@ -1621,15 +1871,18 @@ def phases_llama3(dev):
         raise AssertionError("smoke-width decode step disagrees")
 
     k2_main = phase5_k2(cfg)
-    train_launches = phase6_train(cfg, params, seq_len=1024)
-    k1_7, k2_7 = phase7_colocated(cfg, params, eng, m.round_s, seq_len=1024)
+    train_launches, unit_s = phase6_train(cfg, params, seq_len=1024)
+    k1_7, k2_7, colo = phase7_colocated(cfg, params, eng, m.round_s,
+                                        seq_len=1024)
+    phase7_costmodel(cfg, eng, colo, seq_len=1024)
 
     return dict(k1=dict(launches=launches, **main_k1,
                         launches_by_path={"serve": launches,
                                           "colocated_serve": k1_7}),
                 k2=dict(launches=k2_7, **k2_main,
                         launches_by_path={"train_iteration": train_launches,
-                                          "colocated_serve": k2_7}))
+                                          "colocated_serve": k2_7}),
+                points=cost_points(cfg, colo, unit_s))
 
 
 # ------------------------------------------- sliding window and MoE ----
@@ -2095,11 +2348,160 @@ def phase12_mixtral(dev, layers=16):
     train_launches = mixtral_units(cfg, params, seq_len=1024)
     gc.collect()
     torch.cuda.empty_cache()
-    k1_colo, k2_colo = phase7_colocated(cfg, params, eng, m.round_s,
-                                        seq_len=1024, tag="colo mixtral")
+    k1_colo, k2_colo, colo = phase7_colocated(cfg, params, eng, m.round_s,
+                                              seq_len=1024,
+                                              tag="colo mixtral")
     return dict(k1={"serve_mixtral": k1, "colocated_serve_mixtral": k1_colo},
                 k2={"train_iteration_mixtral": train_launches,
-                    "colocated_serve_mixtral": k2_colo})
+                    "colocated_serve_mixtral": k2_colo},
+                points=cost_points(cfg, colo))
+
+
+def same_leaves(a, b):
+    """Leaf by leaf, bit for bit: (all equal, the largest absolute
+    difference of a leaf that differs)."""
+    from repro_torch.tree import tree_leaves
+    worst, equal = 0.0, True
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if isinstance(x, int):
+            equal &= x == y
+        elif not torch.equal(x, y):
+            equal = False
+            worst = max(worst, (x.float() - y.float()).abs().max().item())
+    return equal, worst
+
+
+def phase13_train(device="cuda", smoke=False):
+    """The finetune entry point (`launch/train.py`) in-process on full-width
+    llama3-8b with K2, micro-batch 2 x 1024 (the paper's, phase 6's): 6
+    steps uninterrupted with a checkpoint every 3; 3 steps into a second
+    directory, then `--resume --steps 6`, the two final states held leaf
+    by leaf (adapters, m, v, t) and the two step-6 checkpoints file by
+    file; K2's launches per step by its counters, all on the wgmma kernel;
+    2 steps of `--layer-units` (graphed units), their launches counted;
+    and a blocking save of the trained state timed, the device-to-host
+    copy alone and the whole commit, beside `CostModel.checkpoint_time()`
+    on the H100 spec. `smoke`/`device`: the same at smoke width (a CPU
+    rehearsal). Returns K2's launches on the two train paths."""
+    import shutil
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.costmodel import CostModel
+    from repro_torch.distributed import fault_tolerance as FT
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    # ------------------------------- 13. launch/train.py at full width --
+    cfg = smoke_config("llama3-8b") if smoke else get_config("llama3-8b")
+    base = ["--arch", "llama3-8b", "--device", device, "--use-kernels",
+            "--batch", "2", "--seq", "32" if smoke else "1024"] + \
+        (["--smoke"] if smoke else [])
+    n = cfg.num_layers * len(cfg.lora.targets)
+    per_step = {"one-shot": 3 * n - 3, "units": 3 * n}
+    root = ROOT / "build" / "phase13"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(label, args, steps, mode="one-shot", warmup=0):
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = train.main(base + args)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = kernel_counts()
+        k2, wgmma = c[("K2", "LAUNCHES")], c[("K2", "LAUNCHES_WGMMA")]
+        others = sum(v for (k, name), v in c.items()
+                     if (k, name) not in (("K2", "LAUNCHES"),
+                                          ("K2", "LAUNCHES_WGMMA")))
+        expect = (steps + warmup) * per_step[mode]
+        log(f"train.py {label}: {steps} step(s) in {secs:.2f} s (the "
+            f"weights' init, {'the capture, ' if warmup else ''}and the "
+            f"checkpoints' writes included); K2 launches={k2} = "
+            f"{steps + warmup} x {per_step[mode]}, on the wgmma kernel "
+            f"{wgmma}, every other launch and plain call {others}")
+        if k2 != expect or wgmma != k2 or others:
+            raise AssertionError(f"train.py {label} did not run every "
+                                 "adapted projection through K2's wgmma "
+                                 "kernel")
+        return out, k2
+
+    seq = base[base.index("--seq") + 1]
+    log(f"train.py: {cfg.name}, micro-batch 2 x {seq}, LoRA r "
+        f"{cfg.lora.rank} on {'/'.join(cfg.lora.targets)}; K2 per one-shot "
+        f"step: forward {n}, remat recompute {n}, backward dx "
+        f"{n - 3} (layer 0's q/k/v input needs no gradient) = "
+        f"{per_step['one-shot']}; per iteration of units {n} FWD + {2 * n} "
+        f"BWD = {per_step['units']}")
+    whole, k2_oneshot = run("6 steps uninterrupted",
+                            ["--steps", "6", "--ckpt-every", "3",
+                             "--ckpt-dir", str(root / "a")], 6)
+    run("3 steps", ["--steps", "3", "--ckpt-every", "3", "--ckpt-dir",
+                    str(root / "b")], 3)
+    resumed, _ = run("--resume to 6 steps",
+                     ["--steps", "6", "--ckpt-every", "3", "--ckpt-dir",
+                      str(root / "b"), "--resume"], 3)
+    files = [sorted((root / d / "step_6").iterdir()) for d in ("a", "b")]
+    same_files = [p.name for p in files[0]] == [p.name for p in files[1]] \
+        and all(p.read_bytes() == q.read_bytes()
+                for p, q in zip(*files) if p.suffix == ".npy")
+    pairs = [("adapters", whole["adapters"], resumed["adapters"])] + [
+        (k, whole["opt"][k], resumed["opt"][k]) for k in ("m", "v", "t")]
+    parts = {name: same_leaves(a, b) for name, a, b in pairs}
+    log("train.py: resumed vs uninterrupted, leaf by leaf: " + ", ".join(
+        f"{k} bit-equal {eq} (max |diff| {d:.3e})"
+        for k, (eq, d) in parts.items())
+        + f"; step-6 checkpoint files byte-equal {same_files}")
+    if not all(eq for eq, _ in parts.values()):
+        # not deterministic: hold to bf16's 2e-2 and name what differs
+        if not parts["t"][0]:
+            raise AssertionError("train.py: the resumed run's step differs")
+        for name, a, b in pairs[:3]:
+            for x, y in zip(tree_leaves(a), tree_leaves(b)):
+                if not torch.allclose(x, y, rtol=2e-2, atol=2e-2 * float(
+                        y.abs().max())):
+                    raise AssertionError(f"train.py: the resumed run's {name}"
+                                         " differ beyond bf16's 2e-2")
+    elif not same_files:
+        raise AssertionError("train.py: equal states wrote unequal "
+                             "checkpoints")
+    units, k2_units = run("--layer-units", ["--steps", "2",
+                                            "--layer-units"], 2, mode="units",
+                          warmup=1 if device == "cuda" else 0)
+    if units["iter"] != 2 or not np.isfinite(float(units["last_loss"])):
+        raise AssertionError("train.py --layer-units did not train")
+    log(f"train.py --layer-units: last loss {float(units['last_loss']):.4f}"
+        f" (ln V = {float(np.log(cfg.vocab_size)):.4f})")
+    del units
+
+    state = {"adapters": whole["adapters"], "opt": whole["opt"]}
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state)
+                 if isinstance(t, torch.Tensor))
+    mgr = FT.CheckpointManager(root / "t", keep=1)
+    copy_s, commit_s = [], []
+    for i in range(3):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        FT.snapshot(state)
+        copy_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        mgr.save(i, state)
+        commit_s.append(time.perf_counter() - t0)
+    cm = CostModel(cfg)
+    trainable = cfg.lora_param_count()
+    log(f"checkpoint: the trained state {nbytes / 1e6:.1f} MB (adapters "
+        f"f32, m and v f32: {nbytes / trainable:.0f} bytes per trainable "
+        f"parameter); blocking save, three times: device-to-host copy "
+        f"{[round(1e3 * t, 3) for t in copy_s]} ms, whole commit "
+        f"{[round(1e3 * t, 3) for t in commit_s]} ms (median "
+        f"{1e3 * statistics.median(copy_s):.3f} / "
+        f"{1e3 * statistics.median(commit_s):.3f}; copy at "
+        f"{nbytes / statistics.median(copy_s) / 1e9:.2f} GB/s); "
+        f"CostModel.checkpoint_time() on {cm.inst.chip.name}: "
+        f"{1e3 * cm.checkpoint_time():.3f} ms ({trainable:,} x (2 + 8) bytes "
+        f"= {trainable * 10 / 1e6:.1f} MB over "
+        f"{cm.inst.host_dma_bw / 1e9:.0f} GB/s)")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"train_oneshot": k2_oneshot, "train_units": k2_units}
 
 
 def main() -> int:
@@ -2125,6 +2527,14 @@ def main() -> int:
     log(f"device {torch.cuda.get_device_name(0)} count "
         f"{torch.cuda.device_count()}")
     log(f"nvidia-smi: {card}")
+    from repro_torch.hw import H100_SXM
+    props = torch.cuda.get_device_properties(0)
+    log(f"card properties: total_memory {props.total_memory / 1e9:.3f} GB, "
+        f"{props.multi_processor_count} SMs, shared memory per block "
+        f"(opt-in) {getattr(props, 'shared_memory_per_block_optin', None)} "
+        f"bytes; the cost model's hw.H100_SXM (data sheet): hbm_bytes "
+        f"{H100_SXM.hbm_bytes / 1e9:.1f} GB, vmem_bytes "
+        f"{H100_SXM.vmem_bytes:.0f}")
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s -> "
@@ -2147,8 +2557,10 @@ def main() -> int:
     k3, mamba_params, mamba_eng, mamba_round_s = phase9_mamba2(dev, mamba)
     log(f"phases 8-9 took {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    k3_colo = phase10_mamba2_colocated(mamba, mamba_params, mamba_eng,
-                                       mamba_round_s, seq_len=1024)
+    k3_colo, mamba_colo = phase10_mamba2_colocated(
+        mamba, mamba_params, mamba_eng, mamba_round_s, seq_len=1024)
+    mamba_points = cost_points(mamba, mamba_colo)
+    del mamba_colo
     log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
     del mamba_params, mamba_eng
     gc.collect()
@@ -2164,13 +2576,22 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     mixtral = phase12_mixtral(dev)
-    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s; whole run "
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    costmodel_fit([llama.pop("points"), mamba_points,
+                   mixtral.pop("points")])
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    train = phase13_train()
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     llama["k1"]["launches_by_path"].update(serve_danube=danube["launches"],
                                            **mixtral["k1"])
     llama["k1"]["hd80"] = {k: v for k, v in danube.items()
                            if k != "launches"}
-    llama["k2"]["launches_by_path"].update(mixtral["k2"])
+    llama["k2"]["launches_by_path"].update(mixtral["k2"], **train)
 
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": [

@@ -6,11 +6,14 @@ Stage 2 — co-located decode latency (Eq. 3):
                     L_colo = (q_inf*b1 + q_ft*k1) * L_solo@q_inf
 
 The port's own copy of `repro/core/predictor.py` (plain numpy; keep the
-two in step), without `fit_from_costmodel`: that method profiles the TPU
-cost model (`repro/core/costmodel.py`, `repro/hw.py`), which waits for an
-H100 chip spec (ROADMAP.md §1 item 4). The port fits the predictor from rounds
-measured on the card instead (`core/colocation.py::profile_rounds`, the
-paper's offline profiling of §8.8 against the real engine).
+two in step). Two measurement sources fit it. `fit_from_costmodel` runs
+the reference's offline profiling schedule (§8.8) against the roofline
+cost model (`core/costmodel.py`, on the H100 spec and the constants fitted
+on the card), sampled in the reference's order, so that on the same spec
+its seeded noise draws and its coefficients equal the reference's.
+`core/colocation.py::profile_rounds` measures rounds of the real engine on
+the device it serves on instead, the route `launch/serve.py` takes by
+default.
 """
 
 from __future__ import annotations
@@ -20,6 +23,11 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.core.costmodel import CostModel
+
+PROFILE_BS = (4, 16, 64)
+PROFILE_SEQLENS = tuple(range(64, 513, 64))
 
 
 @dataclasses.dataclass
@@ -242,3 +250,62 @@ class TwoStageLatencyPredictor:
         for i in range(n):
             self.predict_colo(0.3, 16, 256)
         return (time.perf_counter() - t0) / n * 1e6
+
+    # --------------------------------------------------- profiling driver
+    def fit_from_costmodel(self, cm: CostModel, micro_batch: int = 2,
+                           ft_seq: int = 1024) -> FitReport:
+        """Paper §8.8 offline profiling schedule, against the cost model.
+
+        Solo: k_max quantum levels x 3 batch sizes x 8 seqlens <= 512, one
+        decode round each. Colo: k_max - 1 quanta x 3 batch sizes x 3
+        contexts. Then the two chunked-prefill stages."""
+        solo: Dict[float, List[Tuple[int, int, float]]] = {}
+        for q in self.quanta[1:]:                 # q_inf in 0.1..1.0
+            rows = []
+            for bs in PROFILE_BS:
+                for s in PROFILE_SEQLENS:
+                    rows.append((bs, s, cm.decode_solo(bs, s, quantum=q)))
+            solo[q] = rows
+        self.fit_solo(solo)
+
+        colo = []
+        for ki in range(1, self.k_max):           # q_ft = ki/k_max
+            q_ft = ki / self.k_max
+            for bs in PROFILE_BS:
+                for s in (128, 256, 512):
+                    lat = cm.colocated_round(bs, s, ki, micro_batch, ft_seq)
+                    colo.append((1.0 - q_ft, q_ft, bs, s, lat))
+        self.fit_colo(colo)
+
+        # chunked-prefill stage: decode rounds carrying a prefill chunk.
+        # Profiled at q_ft=0 — the chunked scheduler preempts finetune on
+        # chunk rounds (inference work beats finetune, §2.3), so that is
+        # the operating point the inverse (max_chunk_tokens) prices.
+        mixed = []
+        for bs in PROFILE_BS:
+            for s in (128, 256, 512):
+                for ct in (64, 128, 256, 512):
+                    lat = cm.mixed_round_latency(bs, s, ct, chunk_ctx=s)
+                    mixed.append((0.0, bs, s, ct, lat))
+        self.fit_mixed(mixed)
+
+        # fused-quantum stage (fuse_quantum rounds: chunk + reduced
+        # quantum). Sampled AFTER everything above so the q_ft=0 stages'
+        # samples — and therefore their coefficients and every seeded
+        # noise draw they consume — are bit-identical with or without it.
+        fused = list(mixed)
+        # low/mid/high quanta scaled to k_max (== (2, 5, 8) at the
+        # default k_max=10); every sample stays physically reachable
+        ks = sorted({max(self.k_max // 5, 1), max(self.k_max // 2, 1),
+                     max(4 * self.k_max // 5, 1)})
+        for ki in ks:
+            q_ft = ki / self.k_max
+            for bs in PROFILE_BS:
+                for s in (128, 256, 512):
+                    for ct in (64, 256):
+                        lat = cm.mixed_round_latency(
+                            bs, s, ct, chunk_ctx=s, k_units=ki,
+                            micro_batch=micro_batch, seq_len=ft_seq)
+                        fused.append((q_ft, bs, s, ct, lat))
+        self.fit_mixed_fused(fused)
+        return self.report

@@ -4,18 +4,22 @@
 Port of `repro/launch/serve.py`. With `--colocate`, each decode round runs
 up to `--k-max` finetune layer units of `--ft-arch` (default: the served
 model, sharing its weights), as many as the QoS scheduler allows under
-`--qos-s`. The scheduler's latency predictor is fit from rounds measured
-on the device it runs on before serving starts (k = 0 rounds for
-the solo stage, k > 0 rounds for the co-located stage), not from the TPU
-cost model the reference uses. Runs on `cuda` unless `--device cpu` is
-given. On the card the rounds replay CUDA graphs, captured before serving
-(the capture time and the memory it took are printed); on the CPU they
-run eagerly.
+`--qos-s`. The scheduler's latency predictor is fit, by default
+(`--predictor profile`), from rounds measured on the device it runs on
+before serving starts (k = 0 rounds for the solo stage, k > 0 rounds for
+the co-located stage). `--predictor costmodel` is the reference's route:
+`fit_from_costmodel` on the roofline cost model of the full-width `--arch`
+(`core/costmodel.py`), here on one H100 (`InstanceSpec()`). Runs on
+`cuda` unless `--device cpu` is given. On the card the rounds replay CUDA
+graphs, captured before serving (the capture time and the memory it took
+are printed); on the CPU they run eagerly.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --requests 12 --use-kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --colocate --use-kernels
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --colocate --predictor costmodel
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
       --smoke --device cpu --colocate --use-kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
@@ -38,6 +42,8 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import graphs as G
 from repro_torch.core.colocation import (ColocatedRunner, fit_predictor,
                                          profile_rounds, run_colocated_trace)
+from repro_torch.core.costmodel import CostModel, InstanceSpec
+from repro_torch.core.predictor import TwoStageLatencyPredictor
 from repro_torch.core.scheduler import QoSScheduler, SchedulerConfig
 from repro_torch.models import model as MD
 from repro_torch.serving.engine import ServingEngine
@@ -67,6 +73,10 @@ def main(argv=None):
     ap.add_argument("--k-max", type=int, default=6)
     ap.add_argument("--qos-s", type=float, default=SchedulerConfig.qos_s,
                     help="decode-round latency target of the scheduler")
+    ap.add_argument("--predictor", choices=("profile", "costmodel"),
+                    default="profile",
+                    help="fit the scheduler's predictor from profiled rounds "
+                         "or from the cost model")
     ap.add_argument("--use-kernels", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -110,16 +120,26 @@ def main(argv=None):
     if runner.graphs:
         captured(lambda: runner.precompile(eng.cache, ft_state), device)
     t0 = time.time()
-    solo, colo, ft_state = profile_rounds(
-        runner, eng.cache, ft_state,
-        batch_sizes=sorted({1, max(args.slots // 2, 1), args.slots}),
-        contexts=sorted({args.s_max // 8, args.s_max // 4, args.s_max // 2}),
-        ks=sorted({1, max(args.k_max // 2, 1), args.k_max}), repeats=2)
-    pred = fit_predictor(args.k_max, solo, colo)
-    print(f"profiled {len(solo[1.0])} solo and {len(colo)} co-located "
-          f"points in {time.time() - t0:.1f}s: solo mean err "
-          f"{pred.report.solo_mean_err:.3f}, colo mean err "
-          f"{pred.report.colo_mean_err:.3f}")
+    if args.predictor == "costmodel":
+        pred = TwoStageLatencyPredictor(k_max=args.k_max)
+        pred.fit_from_costmodel(CostModel(get_config(args.arch),
+                                          InstanceSpec()))
+        print(f"fit from the cost model of {args.arch} on "
+              f"{InstanceSpec().chip.name} in {time.time() - t0:.2f}s: "
+              f"solo mean err {pred.report.solo_mean_err:.3f}, colo mean "
+              f"err {pred.report.colo_mean_err:.3f}")
+    else:
+        solo, colo, ft_state = profile_rounds(
+            runner, eng.cache, ft_state,
+            batch_sizes=sorted({1, max(args.slots // 2, 1), args.slots}),
+            contexts=sorted({args.s_max // 8, args.s_max // 4,
+                             args.s_max // 2}),
+            ks=sorted({1, max(args.k_max // 2, 1), args.k_max}), repeats=2)
+        pred = fit_predictor(args.k_max, solo, colo)
+        print(f"profiled {len(solo[1.0])} solo and {len(colo)} co-located "
+              f"points in {time.time() - t0:.1f}s: solo mean err "
+              f"{pred.report.solo_mean_err:.3f}, colo mean err "
+              f"{pred.report.colo_mean_err:.3f}")
     sched = QoSScheduler(pred, SchedulerConfig(qos_s=args.qos_s,
                                                k_max=args.k_max))
     t0 = time.time()

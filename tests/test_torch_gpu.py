@@ -18,7 +18,9 @@ its captured launches; K1 over a wrapped sliding-window ring at hd 80
 (h2o-danube-1.8b) and 128 against its plain version and the windowed
 oracle, the MoE layer at decode and prefill size run with host
 synchronisation forbidden, and the graphed decode step, rounds and engine
-on the sliding-window and MoE smoke configs too. Each skips
+on the sliding-window and MoE smoke configs too; a checkpoint of card
+tensors saved asynchronously and then written in place, and two steps of
+`launch/train.py` with K2 in each mode. Each skips
 with a reason where no CUDA device is present. This file
 imports no JAX (the machine with the card has none), so run it there with
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -692,3 +694,61 @@ def test_moe_layer_runs_without_host_synchronisation(B, S):
     assert torch.equal(aux["dropped_frac"], aux2["dropped_frac"])
     if S == 1:
         assert float(aux["dropped_frac"]) == 0.0
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    """A tree of card tensors (bf16, f32, int32) and a host int saved
+    asynchronously, then written in place on the card before the save's
+    write can have begun: the checkpoint holds the values of the moment
+    `save` was called, and restores onto the card (and onto the CPU) bit
+    for bit."""
+    from repro_torch.distributed.fault_tolerance import CheckpointManager
+    dev = _card()
+    gen = torch.Generator(dev).manual_seed(0)
+    tree = {"w": torch.randn((64, 33), device=dev,
+                             generator=gen).to(torch.bfloat16),
+            "m": torch.randn((5, 7), device=dev, generator=gen),
+            "i": torch.arange(12, dtype=torch.int32, device=dev),
+            "t": 3}
+    before = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                      else t, tree)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(3, tree, blocking=False)
+    for name in ("w", "m", "i"):
+        tree[name].add_(1)
+    mgr.wait()
+    out = mgr.restore(tree)
+    assert out["t"] == 3 and out["w"].is_cuda
+    assert out["w"].dtype == torch.bfloat16
+    for name in ("w", "m", "i"):
+        assert torch.equal(out[name], before[name])
+    cpu = mgr.restore(tree_map(lambda t: t.cpu() if isinstance(
+        t, torch.Tensor) else t, tree))
+    assert torch.equal(cpu["w"], before["w"].cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("units", [False, True])
+def test_train_entry_point_runs_k2_on_the_card(units, tmp_path):
+    """Two steps of `launch/train.py --use-kernels` at smoke width on the
+    card: every adapted projection through K2 (the forward, the remat
+    recompute and the backward's dx in one-shot mode, less layer 0's
+    q/k/v; 7 per FWD and 14 per BWD unit with --layer-units, replayed from
+    CUDA graphs after the capture's warm-up has run one iteration for
+    real), no plain call, and a finite loss."""
+    from repro_torch.launch import train
+    _card()
+    cfg = smoke_config("llama3-8b")
+    n = cfg.num_layers * len(cfg.lora.targets)
+    before = (K2.LAUNCHES, K2.PLAIN_CALLS)
+    out = train.main(["--smoke", "--device", "cuda", "--steps", "2",
+                      "--batch", "2", "--seq", "32", "--use-kernels",
+                      "--ckpt-dir", str(tmp_path)]
+                     + (["--layer-units"] if units else []))
+    torch.cuda.synchronize()
+    per_step = 3 * n if units else 3 * n - 3
+    assert K2.LAUNCHES - before[0] == (3 if units else 2) * per_step
+    assert K2.PLAIN_CALLS == before[1]
+    assert out["opt"]["t"] == 2
+    assert all(torch.isfinite(t).all() for t in tree_leaves(out["adapters"]))

@@ -17,7 +17,7 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.models import model as JMD  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.interop import to_numpy, to_torch  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import model as TMD  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
@@ -66,6 +66,12 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     m = serve.main(["--smoke", "--requests", "2", "--device", "cpu",
                     "--use-kernels"])
     assert m.prefills == 2 and m.decode_rounds > 0
+    for mode in ([], ["--layer-units"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--smoke", "--steps", "1"] + mode)
+        out = train.main(["--smoke", "--steps", "1", "--batch", "2", "--seq",
+                          "16", "--device", "cpu", "--use-kernels"] + mode)
+        assert out["opt"]["t"] == 1
 
 
 # the sliding-window and MoE configurations run; with an int8 KV cache
