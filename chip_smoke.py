@@ -127,6 +127,31 @@ Then the mixtral objects are freed:
      `--layer-units` (graphed units); a blocking save of the state timed
      (the device-to-host copy alone and the whole commit) beside
      `CostModel.checkpoint_time()` on the H100 spec.
+Then the llama3 state is freed:
+ 14. deepseek-v3-671b at published width (d 7168, 128 heads, MLA q/kv
+     rank 1536/512, rope 64, nope 128, v 128; 3 dense layers of d_ff
+     18432; 256 experts of 2048, top-8, sigmoid router, one shared expert;
+     vocab 129280; MTP) with 5 of its 61 layers (its 3 dense layers and 2
+     MoE: 54.6 GB of bf16 weights, one card holds about 3 MoE layers):
+     its bytes by part beside the reckoning; both MoE layers against
+     `moe_plain` and their expert shares; served as phase 12 (16 requests
+     from the decode graph, no K1 or other kernel: MLA decode has none in
+     the reference either; the A/B, a graphed step bit-equal to the eager
+     one), the solo round beside its weight-read bound and the cost
+     model's solo round; the absorbed MLA decode against the unabsorbed
+     form (K/V expanded from the latent) on the first and last layer's
+     served caches; a 300-token prefill and a decode step against the
+     full forward's logit at the served top-8 (both paths' routing of
+     the decoded token printed per MoE layer; where a bf16 rounding swaps
+     an expert, the decode is held with its routing pinned to the
+     forward's); its units (LoRA r 16 on q/o/gate/up/down:
+     EMBED and EMBED_BWD run the 3 dense layers' adapters) by kind with
+     K2's launches held at the plan's count, all wgmma; one one-shot
+     `make_train_step` step (its MTP loss on the card); then co-located
+     as phase 7. Phase 5 also holds K2 at every shape phase 14 launches
+     it at (MLA q 1536 -> 24576, o 16384 -> 7168, dense 7168 <-> 18432,
+     shared expert 7168 <-> 2048, each forward and in the dx form W^T),
+     and the Function's backward at MLA q and the dense down.
 The second line from the end lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repository
 around it, the script exits nonzero and prints no result.
@@ -608,14 +633,36 @@ def grad_agreement(got, expect):
 
 
 def k2_per_unit(cfg):
-    """K2 launches of one unit by kind: one per adapted projection of a
-    layer in FWD, two (forward and dx) in BWD, none in EMBED, HEAD,
-    EMBED_BWD and OPT: 7 and 14 on llama3 (q/k/v/o/gate/up/down), 4 and 8
-    on mixtral (q/k/v/o: the routed experts take no adapters)."""
+    """K2 launches of one unit by kind, from the layer plan: one per
+    adapted projection of a layer in FWD, two (forward and dx) in BWD; the
+    "pre" layers' in EMBED (forward) and EMBED_BWD (forward, the recompute
+    of its per-layer checkpoint and dx, less the first layer's projections
+    whose input depends on no adapter: q/k/v of GQA, q of MLA); none in
+    HEAD and OPT. llama3: FWD 7, BWD 14 (q/k/v/o/gate/up/down); mixtral: 4
+    and 8 (q/k/v/o: the routed experts take no adapters); deepseek-v3 at
+    3 dense + 2 MoE layers: EMBED 15, FWD 5, BWD 10, EMBED_BWD 44."""
     from repro_torch.models import lora as LR
     from repro_torch.models import model as MD
-    n = len(LR._target_dims(cfg, MD._plan(cfg)[1]))
-    return {"FWD": n, "BWD": 2 * n}
+    pre, scan_kind, _, _ = MD._plan(cfg)
+    n = len(LR._target_dims(cfg, scan_kind))
+    n_pre = sum(len(LR._target_dims(cfg, kind)) for kind in pre)
+    return {"FWD": n, "BWD": 2 * n, "EMBED": n_pre,
+            "EMBED_BWD": 3 * n_pre - first_layer_no_dx(cfg) if pre else 0}
+
+
+def first_layer_no_dx(cfg):
+    """The first layer's adapted projections whose input depends on no
+    adapter, so that autograd asks K2 for no dx: the attention inputs."""
+    from repro_torch.models import lora as LR
+    dims = LR._target_dims(cfg, "attn")
+    return len(set(dims) & ({"q"} if cfg.mla else {"q", "k", "v"}))
+
+
+def k2_per_iteration(cfg, unit, total):
+    """K2 launches of `total` units of `unit` from its current index 0:
+    the sum of `k2_per_unit` over the units' kinds."""
+    per = k2_per_unit(cfg)
+    return sum(per.get(unit.kind(i), 0) for i in range(total))
 
 
 def timed_unit_run(unit, step, state, n):
@@ -668,7 +715,44 @@ def phase5_k2(cfg):
                      f"{'dx form (W^T)' if trans else 'W'}", "wgmma")
     check_k2_backward(K2, kops, M, d, kv, r)
     return dict(k2_rows["gate/up"], shape=f"M {M} K {d} N {ff} r {r} bf16 "
-                "(gate/up forward)")
+                "(gate/up forward)", other_shapes=deepseek_k2_cases(K2, kops,
+                                                                   M))
+
+
+def deepseek_k2_cases(K2, kops, M):
+    """K2 against its plain version at every shape phase 14 launches it
+    at, with deepseek-v3's LoRA rank and scale: the adapted projections
+    (MLA q on the latent cq, MLA o on the heads' values, the dense layers'
+    and the shared expert's gate/up/down), each forward (W) and in the dx
+    form of the backward (W^T: K and N swapped, A and B as B^T and A^T);
+    the Function's backward at MLA q and the dense down. Returns the
+    kernels-line rows by projection."""
+    from repro_torch.configs import get_config
+    ds = get_config("deepseek-v3-671b")
+    r, scale = ds.lora.rank, ds.lora.alpha / ds.lora.rank
+    H, qk = ds.num_heads, ds.mla_nope_dim + ds.mla_rope_dim
+    sf = ds.num_shared_experts * ds.moe_d_ff
+    projections = (("MLA q", ds.mla_q_rank, H * qk),
+                   ("MLA o", H * ds.mla_v_dim, ds.d_model),
+                   ("dense gate/up", ds.d_model, ds.d_ff),
+                   ("dense down", ds.d_ff, ds.d_model),
+                   ("shared gate/up", ds.d_model, sf),
+                   ("shared down", sf, ds.d_model))
+    rows = {}
+    for i, (name, k_, n_) in enumerate(projections):
+        for trans in (False, True):
+            kk, nn = (n_, k_) if trans else (k_, n_)
+            label = f"{name}{' dx (W^T)' if trans else ''}"
+            x, w, a, b = k2_inputs(M, kk, nn, r, torch.bfloat16, trans,
+                                   seed=41 + 2 * i + trans)
+            row = check_k2(K2, x, w, a, b, scale, f"{label} (deepseek-v3)",
+                           "wgmma")
+            rows[label] = dict(row, shape=f"M {M} K {kk} N {nn} r {r} bf16"
+                               + (" W^T" if trans else ""))
+            del x, w, a, b
+    check_k2_backward(K2, kops, M, ds.mla_q_rank, H * qk, r)
+    check_k2_backward(K2, kops, M, ds.d_ff, ds.d_model, r)
+    return rows
 
 
 def phase6_train(cfg, params, seq_len):
@@ -1033,12 +1117,13 @@ def phase7_colocated(cfg, params, eng, solo_round_s, seq_len, tag="colo"):
     k1, k2, k2w = counts[("K1", "LAUNCHES")], counts[("K2", "LAUNCHES")], \
         counts[("K2", "LAUNCHES_WGMMA")]
     plain = sum(n for (_, c), n in counts.items() if c == "PLAIN_CALLS")
-    log(f"{tag}: K1 launches={k1} ({cfg.num_layers} x {m.decode_rounds} "
-        f"rounds = {cfg.num_layers * m.decode_rounds}) K2 launches={k2} "
+    k1_layers = 0 if cfg.mla else cfg.num_layers      # MLA decode: no K1
+    log(f"{tag}: K1 launches={k1} ({k1_layers} x {m.decode_rounds} "
+        f"rounds = {k1_layers * m.decode_rounds}) K2 launches={k2} "
         f"(expected from the units run: {k2_expect}; on the wgmma kernel "
         f"{k2w}, WMMA {counts[('K2', 'LAUNCHES_WMMA')]}, FMA "
         f"{counts[('K2', 'LAUNCHES_F32')]}) plain calls={plain}")
-    if k1 != cfg.num_layers * m.decode_rounds or k2 != k2_expect or \
+    if k1 != k1_layers * m.decode_rounds or k2 != k2_expect or \
             k2w != k2 or plain:
         raise AssertionError(f"{tag}: co-located rounds did not run through "
                              "K1/K2")
@@ -2104,12 +2189,14 @@ def dropped_line(label, shares):
 
 
 def moe_plain(p, x, cfg):
-    """mixtral's routed MoE layer, plainly: softmax top-k renormalised per
-    token, each assignment ranked within its expert by a one-hot cumsum in
-    (token, choice) order and dropped from rank C on (`moe_forward`'s
-    groups and capacity), then a loop over the experts, each running its
-    FFN on the tokens it kept and adding them back weighted. Returns
-    (y, dropped share, kept assignments per expert)."""
+    """The routed MoE layer, plainly: softmax top-k (mixtral) or sigmoid
+    top-k (deepseek-v3, `cfg.mla`) renormalised per token, each assignment
+    ranked within its expert by a one-hot cumsum in (token, choice) order
+    and dropped from rank C on (`moe_forward`'s groups and capacity), then
+    a loop over the experts, each running its FFN on the tokens it kept
+    and adding them back weighted; then the shared experts' FFN, where
+    there are any. Returns (y, dropped share, kept assignments per
+    expert)."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     if S * k >= 2 * E:
@@ -2120,7 +2207,9 @@ def moe_plain(p, x, cfg):
         C = min(T, max(8, 4 * (-(-T * k // E))))
     xt = x.reshape(G, T, d)
     logits = torch.einsum("gtd,de->gte", xt.float(), p["router"].float())
-    top_w, top_i = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+    scores = torch.sigmoid(logits) if cfg.mla else \
+        torch.softmax(logits, dim=-1)
+    top_w, top_i = torch.topk(scores, k, dim=-1)
     top_w = (top_w / top_w.sum(dim=-1, keepdim=True)).reshape(G, T * k)
     e_flat = top_i.reshape(G, T * k)
     onehot = F.one_hot(e_flat, E)
@@ -2135,8 +2224,13 @@ def moe_plain(p, x, cfg):
             act = F.silu((h @ p["gate"][e]).float()).to(x.dtype)
             out = (act * (h @ p["up"][e])) @ p["down"][e]
             y[g].index_add_(0, a // k, out.float() * top_w[g, a, None])
-    return (y.to(x.dtype).reshape(B, S, d), 1.0 - keep.float().mean(),
-            (onehot * keep[..., None]).sum(dim=(0, 1)))
+    y = y.to(x.dtype).reshape(B, S, d)
+    if "shared" in p:
+        sh = p["shared"]
+        act = F.silu((x @ sh["gate"]).float()).to(x.dtype)
+        y = y + (act * (x @ sh["up"])) @ sh["down"]
+    return y, 1.0 - keep.float().mean(), (onehot * keep[..., None]).sum(
+        dim=(0, 1))
 
 
 def moe_layer_inputs(params, cfg, toks):
@@ -2147,20 +2241,23 @@ def moe_layer_inputs(params, cfg, toks):
     with recording_moe(lambda x, y, aux: inputs.append(
             (x, y, aux["dropped_frac"]))), torch.no_grad():
         MD.forward(params, cfg, {"tokens": toks})
-    if len(inputs) != cfg.num_layers:
+    if len(inputs) != cfg.scanned_layers:
         raise AssertionError("the forward did not run every MoE layer")
     return inputs
 
 
-def check_moe_layers(params, cfg, seq_len):
+def check_moe_layers(params, cfg, seq_len, name="mixtral"):
     """Every MoE layer's input on 2 x seq_len tokens, of the synthetic
     corpus (a training micro-batch) and uniform (as the served prompts):
-    per layer, the experts' shares of the top-k assignments, the dropped
-    share and the mean cosine between the tokens' inputs (near 1: the
-    tokens look alike to the router, so they pick the same experts); then
-    `moe_forward` at full width on the first and the last layer's corpus
-    input against `moe_plain`, at the bf16 tolerance."""
+    per layer, the experts' shares of the top-k assignments (with many
+    experts: the largest five, the share of the largest and how many
+    experts took none), the dropped share and the mean cosine between the
+    tokens' inputs (near 1: the tokens look alike to the router, so they
+    pick the same experts); then `moe_forward` at full width on the first
+    and the last layer's corpus input against `moe_plain`, at the bf16
+    tolerance."""
     from repro_torch.training.data import DataConfig, SyntheticCorpus
+    from repro_torch.tree import tree_map
     dev = params["embed"].device
     corpus = torch.as_tensor(next(SyntheticCorpus(DataConfig(
         cfg.vocab_size, seq_len, 2, seed=0)).batches())["tokens"],
@@ -2181,22 +2278,29 @@ def check_moe_layers(params, cfg, seq_len):
             T = x.shape[1]
             cos = ((xn.sum(dim=1).square().sum(dim=-1) - T) /
                    (T * (T - 1))).mean()
-            log(f"mixtral MoE layer {layer:2d} on 2 x {seq_len} {source} "
-                f"tokens: expert shares "
-                f"{[round(v, 3) for v in share.tolist()]}, dropped "
+            shares = [round(v, 3) for v in share.tolist()] if E <= 16 else (
+                f"largest five "
+                f"{[round(v, 4) for v in share.topk(5).values.tolist()]} "
+                f"(even {1 / E:.4f}), none taken by "
+                f"{int((share == 0).sum())} of {E}")
+            log(f"{name} MoE layer {layer:2d} on 2 x {seq_len} {source} "
+                f"tokens: expert shares {shares}, dropped "
                 f"{dropped.item():.4f}, mean token cosine {cos.item():.4f}")
-    for layer in (0, cfg.num_layers - 1):
+    for layer in (0, cfg.scanned_layers - 1):
         x, y, dropped = inputs[layer]
-        lp = {n: t[layer] for n, t in p.items()}
+        lp = tree_map(lambda t: t[layer], p)
         expect, expect_dropped, kept = moe_plain(lp, x, cfg)
         torch.cuda.synchronize()
         err = (y.float() - expect.float()).abs().max().item()
-        log(f"mixtral MoE layer {layer} moe_forward vs moe_plain (d "
-            f"{cfg.d_model}, {E} experts of {cfg.moe_d_ff}, 2 x {seq_len} "
+        kept_line = kept.tolist() if E <= 16 else \
+            f"max {int(kept.max())}, min {int(kept.min())}"
+        log(f"{name} MoE layer {layer} moe_forward vs moe_plain (d "
+            f"{cfg.d_model}, {E} experts of {cfg.moe_d_ff}, "
+            f"{cfg.num_shared_experts} shared, 2 x {seq_len} "
             f"corpus tokens): max_abs_err={err:.3e} (tol 2e-2, max |y| "
             f"{expect.float().abs().max().item():.3e}), dropped "
             f"{dropped.item():.4f} / {expect_dropped.item():.4f}, kept per "
-            f"expert {kept.tolist()}")
+            f"expert {kept_line}")
         if not torch.allclose(y.float(), expect.float(), atol=2e-2,
                               rtol=2e-2) or \
                 dropped.item() != expect_dropped.item():
@@ -2204,14 +2308,17 @@ def check_moe_layers(params, cfg, seq_len):
                                  f"layer {layer}")
 
 
-def mixtral_units(cfg, params, seq_len):
-    """The finetune units on mixtral at full width (LoRA r 16 on q/k/v/o,
-    micro-batch 2 x seq_len, accum 1): one eager iteration (its MoE
-    dropped shares recorded), then two eager and two graphed iterations in
-    turns, synchronized per unit: medians by kind, K2's launches per
-    iteration by route. Returns the launches of one iteration."""
+def moe_units(cfg, params, seq_len, name="mixtral"):
+    """The finetune units on an MoE model at full width (LoRA r 16 on its
+    targets, micro-batch 2 x seq_len, accum 1): one eager iteration (its
+    MoE dropped shares recorded), then two eager and two graphed
+    iterations in turns, synchronized per unit: medians by kind, K2's
+    launches per iteration by route, held at the count the layer plan
+    gives (`k2_per_unit`). Returns (the launches counted in the first
+    iteration, the graphed medians by kind in seconds)."""
     from repro_torch.core import colocation as C
     from repro_torch.kernels import lora_matmul as K2
+    from repro_torch.models import lora as LR
     from repro_torch.training import peft as P
     from repro_torch.training.data import (DataConfig, Prefetcher,
                                            SyntheticCorpus)
@@ -2223,7 +2330,12 @@ def mixtral_units(cfg, params, seq_len):
     unit = P.make_unit_step(cfg, pc, params, use_kernels=True)
     total = P.units_per_iteration(cfg, pc.accum)
     per = k2_per_unit(cfg)
-    n_k2 = cfg.num_layers * (per["FWD"] + per["BWD"])
+    n_k2 = k2_per_iteration(cfg, unit, total)
+    kinds = collections.Counter(unit.kind(i) for i in range(total))
+    plan = " + ".join(f"{kinds[kind]} {kind} x {per[kind]}"
+                      for kind in ("EMBED", "FWD", "BWD", "EMBED_BWD")
+                      if per.get(kind))
+    targets = "/".join(LR._target_dims(cfg, unit.scan_kind))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
@@ -2233,29 +2345,28 @@ def mixtral_units(cfg, params, seq_len):
         ft, cold = timed_unit_run(unit, unit, ft, total)
     iter_s = time.perf_counter() - t0
     counts = kernel_counts()
-    log(f"mixtral train: micro_batch 2 x seq {seq_len}, accum 1, LoRA r="
-        f"{cfg.lora.rank} on q/k/v/o; the first iteration of {total} units "
+    log(f"{name} train: micro_batch 2 x seq {seq_len}, accum 1, LoRA r="
+        f"{cfg.lora.rank} on {targets}; the first iteration of {total} units "
         f"in {iter_s:.3f} s (synchronized per unit), iter={ft['iter']}, "
         f"last_loss={float(ft['last_loss']):.4f} (ln V = "
         f"{float(np.log(cfg.vocab_size)):.4f}), max_memory_allocated_gb="
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
-    log(f"mixtral train: K2 launches={counts[('K2', 'LAUNCHES')]} "
-        f"({cfg.num_layers} x {per['FWD']} + {cfg.num_layers} x "
-        f"{per['BWD']} = {n_k2}): wgmma {counts[('K2', 'LAUNCHES_WGMMA')]}, "
+    log(f"{name} train: K2 launches={counts[('K2', 'LAUNCHES')]} "
+        f"({plan} = {n_k2}): wgmma {counts[('K2', 'LAUNCHES_WGMMA')]}, "
         f"WMMA {counts[('K2', 'LAUNCHES_WMMA')]}, FMA "
         f"{counts[('K2', 'LAUNCHES_F32')]}, plain calls "
         f"{counts[('K2', 'PLAIN_CALLS')]}")
-    dropped_line("mixtral train (FWD units and the BWD units' recomputed "
-                 "forward, 2 x 1024 tokens, a group per row)", shares)
+    dropped_line(f"{name} train (FWD units and the BWD units' recomputed "
+                 f"forward, 2 x {seq_len} tokens, a group per row)", shares)
     if counts[("K2", "LAUNCHES")] != n_k2 or \
             counts[("K2", "LAUNCHES_WGMMA")] != n_k2 or \
             counts[("K2", "PLAIN_CALLS")]:
-        raise AssertionError("mixtral's units did not run through K2's "
+        raise AssertionError(f"{name}'s units did not run through K2's "
                              "wgmma kernel")
     if ft["iter"] != 1 or not np.isfinite(float(ft["last_loss"])):
-        raise AssertionError("mixtral's training iteration did not finish")
+        raise AssertionError(f"{name}'s training iteration did not finish")
     box = {}
-    captured("mixtral units (one graph per unit of an iteration)",
+    captured(f"{name} units (one graph per unit of an iteration)",
              lambda: box.update(units=C.GraphedUnits(unit, ft)))
     graphed = box.pop("units")
 
@@ -2271,19 +2382,22 @@ def mixtral_units(cfg, params, seq_len):
             by_mode[mode].setdefault(kind, []).extend(t)
         moved = (K2.LAUNCHES - before[0], K2.LAUNCHES_WGMMA - before[1])
         if moved != (n_k2, n_k2):
-            raise AssertionError(f"an iteration of {mode} mixtral units made "
+            raise AssertionError(f"an iteration of {mode} {name} units made "
                                  f"K2 launches {moved}, not {n_k2} wgmma")
-    for kind in ("EMBED", "FWD", "HEAD", "BWD", "OPT"):
+    for kind in P.UNIT_KINDS:
+        if kind not in by_mode["eager"]:
+            continue
         e, g = by_mode["eager"][kind], by_mode["graphed"][kind]
-        log(f"mixtral train: {kind:5s} units synchronized, two iterations "
+        log(f"{name} train: {kind:9s} units synchronized, two iterations "
             f"each in turns: eager ms_median={1e3 * statistics.median(e):.3f}"
             f", graphed ms_median={1e3 * statistics.median(g):.3f} (ratio "
             f"{statistics.median(g) / statistics.median(e):.3f})")
-    log(f"mixtral train: an iteration of {total} units synchronized per "
+    log(f"{name} train: an iteration of {total} units synchronized per "
         f"unit, eager {sum(map(sum, by_mode['eager'].values())) / 2:.3f} s, "
         f"graphed {sum(map(sum, by_mode['graphed'].values())) / 2:.3f} s")
-    peaks("mixtral train")
-    return n_k2
+    peaks(f"{name} train")
+    return counts[("K2", "LAUNCHES")], {kind: statistics.median(t)
+                  for kind, t in by_mode["graphed"].items()}
 
 
 def phase12_mixtral(dev, layers=16):
@@ -2345,7 +2459,7 @@ def phase12_mixtral(dev, layers=16):
     pos = (eng.cache["scan"]["kv_pos"][0] >= 0).sum(dim=-1).to(torch.int32)
     graphed_decode_bits("mixtral serve", params, cfg, eng.cache,
                         torch.tensor(eng.last_token, device=dev), pos)
-    train_launches = mixtral_units(cfg, params, seq_len=1024)
+    train_launches, _ = moe_units(cfg, params, seq_len=1024)
     gc.collect()
     torch.cuda.empty_cache()
     k1_colo, k2_colo, colo = phase7_colocated(cfg, params, eng, m.round_s,
@@ -2504,6 +2618,347 @@ def phase13_train(device="cuda", smoke=False):
     return {"train_oneshot": k2_oneshot, "train_units": k2_units}
 
 
+# deepseek-v3 at 3 dense + 2 MoE layers, reckoned before the run in bf16
+# (router f32): GB by part, and the decode round's weight reads at the
+# HBM rate (embedding gather and MTP head left out)
+DEEPSEEK_RECKONING_GB = {"embed + unembed": 3.707, "dense layer": 1.167,
+                         "MoE layer": 23.018, "MTP head": 1.372,
+                         "total": 54.62}
+# MLA decode, absorbed (bf16 roundings of q_lat, the softmax weights and
+# o) vs the unabsorbed form in f32 on the same cache: the bf16 tolerance
+# of tests/test_kernels.py, relative to the output's largest entry
+MLA_TOL = 2e-2
+# prefill + decode vs the full forward, relative to the largest |logit|,
+# per layer of the model: each layer's absorbed MLA decode is held within
+# MLA_TOL of its largest output (`mla_decode_checks`); with the routing
+# the same on both paths, the residual stream adds up the layers'
+# differences at the decoded position and the logits read its normed
+# end, so they agree within layers x MLA_TOL of their largest entry
+# (LOGIT_TOL, 0.25 absolute, was set for llama3's 32 layers through K1)
+DECODE_LOGIT_TOL_PER_LAYER = MLA_TOL
+
+
+def mla_decode_checks(params, cfg, cache, label):
+    """The absorbed MLA decode (`attention.mla_decode`) on the card against
+    the unabsorbed form (`mla_decode_expanded`: every cached token's K and
+    V expanded from its latent through W_kv_b, f32), on the first and the
+    last layer's served latent caches, every slot at its next position,
+    for a unit-RMS bf16 input (as the layer's normed hidden state); both
+    timed. MLA's plain oracle: no TPU kernel covers it."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as MD
+    layers, caches = MD._layers(cfg, params), MD._layers(cfg, cache)
+    first = caches[0][1]
+    dev = first["c_kv"].device
+    pos = (first["kv_pos"] >= 0).sum(dim=-1).to(torch.int32)
+    x = torch.randn((pos.shape[0], 1, cfg.d_model), device=dev,
+                    generator=torch.Generator(dev).manual_seed(14)
+                    ).to(torch.bfloat16)
+    for j in (0, len(layers) - 1):
+        p, lc = layers[j][1]["attn"], caches[j][1]
+        expect = A.mla_decode_expanded(p, x, pos, clone_tree(lc), cfg)
+        got, _ = A.mla_decode(p, x, pos, clone_tree(lc), cfg)
+        torch.cuda.synchronize()
+        scale = expect.float().abs().max().item()
+        err = (got.float() - expect.float()).abs().max().item()
+        scratch = clone_tree(lc)
+        ms = time_ms(lambda: A.mla_decode(p, x, pos, scratch, cfg))
+        plain_ms = time_ms(lambda: A.mla_decode_expanded(p, x, pos, scratch,
+                                                         cfg), iters=10)
+        log(f"{label} layer {j} ({layers[j][0]}): absorbed MLA decode vs "
+            f"the unabsorbed form on the served latent cache (8 slots, "
+            f"positions {pos.tolist()}): max_abs_err={err:.3e} = "
+            f"{err / scale:.3e} of max |out| {scale:.3e} (tol {MLA_TOL}); "
+            f"absorbed ms={ms:.4f}, unabsorbed (f32) ms={plain_ms:.4f}")
+        if err > MLA_TOL * scale or not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: the absorbed MLA decode "
+                                 f"disagrees with the unabsorbed form at "
+                                 f"layer {j}")
+
+
+@contextlib.contextmanager
+def top_k_hook(hook):
+    """moe_forward's top-k in the block goes through hook(scores, k,
+    plain), `plain` being the port's own `_top_k`."""
+    from repro_torch.models import moe as M
+    plain = M._top_k
+    M._top_k = lambda scores, k: hook(scores, k, plain)
+    try:
+        yield
+    finally:
+        M._top_k = plain
+
+
+def routing_at(into, row):
+    """A `top_k_hook` recording, at each MoE layer, the scores and the
+    chosen experts of token `row` of the first group."""
+    def hook(scores, k, plain):
+        w, i = plain(scores, k)
+        into.append((scores[0, row].float(), i[0, row]))
+        return w, i
+    return hook
+
+
+def pinned_to(choices):
+    """A `top_k_hook` that takes, at the j-th MoE layer, the experts
+    `choices[j][1]` in that order, with this path's own scores."""
+    calls = iter(choices)
+
+    def hook(scores, k, plain):
+        i = next(calls)[1].expand(*scores.shape[:-1], k)
+        return torch.gather(scores, -1, i), i
+    return hook
+
+
+def prefill_decode_vs_forward(params, cfg, n, label):
+    """A prefill of n tokens then one decode step, against `forward` over
+    the n + 1 tokens at position n, at the served top-k, with capacity
+    T (C = T * k * E/k / E): the forward drops nothing at position n, as
+    the decode at one token never does. Both paths' routing of token n
+    is recorded at every MoE layer and printed: where the chosen experts
+    differ, the layer, the experts swapped, their scores on both paths,
+    the forward's margin between its k-th and (k+1)-th score and the
+    largest score difference between the paths. Where they differ, the
+    decode runs again with its routing pinned to the forward's, and that
+    decode is held: a swap moves the output by a whole expert's share,
+    which is no measure of the attention paths. Held at layers x
+    DECODE_LOGIT_TOL_PER_LAYER of the largest |logit|."""
+    from repro_torch.models import model as MD
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                              / cfg.top_k)
+    dev = params["embed"].device
+    toks = torch.randint(0, cfg.vocab_size, (1, n + 1), device=dev,
+                         generator=torch.Generator(dev).manual_seed(15))
+    pos = torch.tensor([n], dtype=torch.int32, device=dev)
+    fwd, dec = [], []
+    with torch.no_grad():
+        cache = MD.init_cache(cfg, 1, n + 1, device=dev)
+        MD.prefill(params, cfg, {"tokens": toks[:, :n]}, cache)
+        prefilled = clone_tree(cache)
+        with top_k_hook(routing_at(dec, 0)):
+            got, _ = MD.decode_step(params, cfg, toks[:, n].to(torch.int32),
+                                    pos, cache)
+        with top_k_hook(routing_at(fwd, n)):
+            expect = MD.forward(params, cfg, {"tokens": toks})[0][:, n]
+    torch.cuda.synchronize()
+    if len(fwd) != cfg.scanned_layers or len(dec) != cfg.scanned_layers:
+        raise AssertionError(f"{label}: a path skipped an MoE layer")
+    scale = expect.float().abs().max().item()
+    tol = cfg.num_layers * DECODE_LOGIT_TOL_PER_LAYER
+    err = (got.float() - expect.float()).abs().max().item()
+    swapped = []
+    for j, ((sf, cf), (sd, cd)) in enumerate(zip(fwd, dec)):
+        top = torch.sort(sf, descending=True).values
+        margin = (top[cfg.top_k - 1] - top[cfg.top_k]).item()
+        delta = (sf - sd).abs().max().item()
+        out = sorted(set(cf.tolist()) - set(cd.tolist()))
+        inn = sorted(set(cd.tolist()) - set(cf.tolist()))
+        log(f"{label}: MoE layer {j} routing of token {n}: forward top-"
+            f"{cfg.top_k} {cf.tolist()}, decode {cd.tolist()}; the "
+            f"forward's margin (score {cfg.top_k} - score {cfg.top_k + 1}) "
+            f"{margin:.3e}, largest |score difference| between the paths "
+            f"{delta:.3e}" + (
+                "; the same experts" if not out else
+                f"; swapped: forward only {out} (forward scores "
+                f"{[round(sf[e].item(), 6) for e in out]}, decode "
+                f"{[round(sd[e].item(), 6) for e in out]}), decode only "
+                f"{inn} (forward {[round(sf[e].item(), 6) for e in inn]}, "
+                f"decode {[round(sd[e].item(), 6) for e in inn]})"))
+        if out:
+            swapped.append(j)
+    log(f"{label}: prefill of {n} tokens then a decode step vs forward's "
+        f"logit at position {n} (top-{cfg.top_k}, nothing dropped), routing "
+        f"{'as each path chose' if not swapped else 'differs at MoE layers '}"
+        f"{swapped if swapped else ''}: max |dlogit| {err:.4f} = "
+        f"{err / scale:.3e} of max |logit| {scale:.3f}")
+    if swapped:
+        with torch.no_grad(), top_k_hook(pinned_to(fwd)):
+            got, _ = MD.decode_step(params, cfg, toks[:, n].to(torch.int32),
+                                    pos, clone_tree(prefilled))
+        torch.cuda.synchronize()
+        err = (got.float() - expect.float()).abs().max().item()
+    same = bool((got.argmax(-1) == expect.argmax(-1)).all())
+    log(f"{label}: prefill + decode"
+        f"{' with the routing pinned to the forward' if swapped else ''} vs "
+        f"forward at position {n}: max |dlogit| {err:.4f} = "
+        f"{err / scale:.3e} of max |logit| (tol {cfg.num_layers} layers x "
+        f"{DECODE_LOGIT_TOL_PER_LAYER} = {tol:.3g}), same greedy token "
+        f"{same}")
+    if err > tol * scale or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: prefill + decode disagrees with the "
+                             "full forward")
+
+
+def k2_per_step(cfg):
+    """K2 launches of a one-shot train step with remat: each adapted
+    projection of each layer forward, recomputed and its dx, less the
+    first layer's projections whose input depends on no adapter."""
+    from repro_torch.models import lora as LR
+    from repro_torch.models import model as MD
+    pre, scan_kind, n, _ = MD._plan(cfg)
+    per_layer = [len(LR._target_dims(cfg, kind))
+                 for kind in pre + [scan_kind] * n]
+    return 3 * sum(per_layer) - first_layer_no_dx(cfg)
+
+
+def one_shot_step(cfg, params, seq_len, label):
+    """One `make_train_step` step (remat, K2) at full width on a 2 x
+    seq_len micro-batch of the corpus: `loss_fn` with its MoE aux and MTP
+    terms, so `_mtp_loss` runs on the card. K2's launches held at
+    `k2_per_step`, all wgmma; ce, aux and mtp_ce printed and finite.
+    Returns K2's launches counted in the step."""
+    from repro_torch.models import model as MD
+    from repro_torch.training import peft as P
+    from repro_torch.training.data import DataConfig, SyntheticCorpus
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    dev = params["embed"].device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(
+        SyntheticCorpus(DataConfig(cfg.vocab_size, seq_len, 2, seed=2)
+                        ).batches()).items()}
+    adapters = MD.init_adapters(cfg, 1, device=dev)
+    step = P.make_train_step(cfg, AdamWConfig(), use_kernels=True,
+                             remat=True)
+    step(params, adapters, adamw_init(adapters), batch)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    _, _, m = step(params, adapters, adamw_init(adapters), batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = kernel_counts()
+    expect = k2_per_step(cfg)
+    vals = {k: float(v) for k, v in m.items()}
+    log(f"{label}: one make_train_step step (remat, K2) on 2 x {seq_len} "
+        f"tokens in {secs:.3f} s: loss {vals['loss']:.4f} = ce "
+        f"{vals['ce']:.4f} + {MD.MOE_AUX_COEF} x aux {vals['aux']:.4f} / "
+        f"{cfg.num_layers} + {MD.MTP_COEF} x mtp_ce {vals['mtp_ce']:.4f} "
+        f"(ln V = {float(np.log(cfg.vocab_size)):.4f}); K2 launches="
+        f"{c[('K2', 'LAUNCHES')]} (expected {expect}: 3 x the adapted "
+        f"projections less the first layer's q dx), wgmma "
+        f"{c[('K2', 'LAUNCHES_WGMMA')]}, plain calls "
+        f"{c[('K2', 'PLAIN_CALLS')]}; max_memory_allocated_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    if not all(np.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"{label}: the train step's losses are not "
+                             "finite")
+    if c[("K2", "LAUNCHES")] != expect or \
+            c[("K2", "LAUNCHES_WGMMA")] != expect or c[("K2", "PLAIN_CALLS")]:
+        raise AssertionError(f"{label}: the train step did not run every "
+                             "adapted projection through K2's wgmma kernel")
+    return c[("K2", "LAUNCHES")]
+
+
+def phase14_deepseek(dev, layers=5):
+    """deepseek-v3-671b at published width with `layers` of its 61 (its 3
+    dense layers in "pre", the rest MoE, scanned): bytes beside the
+    reckoning, every MoE layer against `moe_plain`, served from the decode
+    graph with no K1 (MLA decode has no kernel, in the reference too),
+    the A/B and a graphed step bit-equal to the eager one, the round
+    beside its weight-read bound and the cost model's solo round, the
+    absorbed MLA decode against the unabsorbed form, a prefill + decode
+    against the full forward, the units by kind (K2 on wgmma at the plan's
+    count), one one-shot step (the MTP loss on the card), then co-located
+    as phase 7. Returns the kernels-line numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import CostModel, InstanceSpec
+    from repro_torch.models import model as MD
+    from repro_torch.serving.engine import EngineMetrics, ServingEngine
+    from repro_torch.serving.request import Request
+    # --------------------------------- 14. deepseek-v3, 3 + 2 layers --
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    t0 = time.perf_counter()
+    params = MD.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_pre = len(params["pre"])
+    parts = {"embed + unembed": tree_bytes([params["embed"],
+                                            params["unembed"]]),
+             "dense layer": tree_bytes(params["pre"]) / n_pre,
+             "MoE layer": tree_bytes(params["scan"]) / cfg.scanned_layers,
+             "MTP head": tree_bytes(params["mtp"]),
+             "total": tree_bytes(params)}
+    log(f"deepseek-v3: {cfg.num_layers} of {full.num_layers} layers ({n_pre}"
+        f" dense in pre, {cfg.scanned_layers} MoE scanned), d "
+        f"{cfg.d_model}, {cfg.num_heads} heads, MLA q/kv rank "
+        f"{cfg.mla_q_rank}/{cfg.mla_kv_rank}, rope {cfg.mla_rope_dim}, nope "
+        f"{cfg.mla_nope_dim}, v {cfg.mla_v_dim}; dense d_ff {cfg.d_ff}; "
+        f"{cfg.num_experts} experts of {cfg.moe_d_ff}, top-{cfg.top_k}, "
+        f"sigmoid router, {cfg.num_shared_experts} shared; vocab "
+        f"{cfg.vocab_size}, MTP; random (seed 0), init {init_s:.2f} s")
+    log("deepseek-v3 weights, GB measured (reckoned): " + ", ".join(
+        f"{k} {v / 1e9:.3f} ({DEEPSEEK_RECKONING_GB[k]})"
+        for k, v in parts.items()))
+    check_moe_layers(params, cfg, seq_len=1024, name="deepseek-v3")
+    eng = ServingEngine(cfg, params, max_slots=8, s_max=1024,
+                        use_kernels=True, device=dev)
+    if not eng.graphs:
+        raise AssertionError("the engine does not replay a CUDA graph")
+    captured("deepseek-v3 decode step (8 slots)", eng.precompile)
+    eng.run_trace([Request(rid=-1, arrival=0.0, prompt_len=64,
+                           max_new_tokens=2)])       # warm-up, not counted
+    eng.metrics = EngineMetrics()
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, arrival=i * 0.01,
+                    prompt_len=int(rng.integers(64, 513)), max_new_tokens=32)
+            for i in range(16)]
+    shares = []
+    with recording_moe(dropped_shares(shares)):
+        m, counts = serve_trace(eng, reqs, "deepseek-v3 serve")
+    k1 = counts[("K1", "LAUNCHES")]
+    launched = sum(counts.values())
+    cache_mb = tree_bytes(eng.cache) / 1e6
+    log(f"deepseek-v3 serve: K1 launches={k1} (MLA decode runs no decode "
+        f"kernel), every kernel launch and plain call {launched}; the "
+        f"latent cache (8 slots x 1024 x {cfg.num_layers} layers) "
+        f"{cache_mb:.1f} MB")
+    dropped_line(f"deepseek-v3 prefill ({m.prefills} admissions x "
+                 f"{cfg.scanned_layers} MoE layers)", shares)
+    if launched or len(shares) != cfg.scanned_layers * m.prefills:
+        raise AssertionError("deepseek-v3's serving launched a kernel, or "
+                             "skipped an MoE layer")
+    ab = ab_solo_rounds(eng, cfg, "deepseek-v3 serve")
+    ctx = float((eng.cache["pre"][0]["kv_pos"] >= 0).sum(dim=-1).float()
+                .mean())
+    read = parts["total"] - tree_bytes(params["embed"]) - parts["MTP head"]
+    bound_ms = read / HBM_BYTES_PER_S * 1e3
+    model_ms = 1e3 * CostModel(cfg, InstanceSpec()).decode_solo(
+        8, ctx, noisy=False)
+    log(f"deepseek-v3 serve: graphed solo round at 8 slots median "
+        f"{1e3 * ab['graphed'][0]:.3f} ms, p90 {1e3 * ab['graphed'][1]:.3f}"
+        f" ms; bound from weight reads {read / 1e9:.2f} GB / "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {bound_ms:.3f} ms (ratio "
+        f"{1e3 * ab['graphed'][0] / bound_ms:.3f}; the dense dispatch runs "
+        f"all {cfg.num_experts} experts); the cost model's solo round "
+        f"(committed constants, {InstanceSpec().chip.name}, bs 8, mean "
+        f"context {ctx:.0f}) {model_ms:.3f} ms")
+    graphed_decode_bits("deepseek-v3 serve", params, cfg, eng.cache,
+                        torch.tensor(eng.last_token, device=dev),
+                        (eng.cache["pre"][0]["kv_pos"] >= 0).sum(
+                            dim=-1).to(torch.int32))
+    mla_decode_checks(params, cfg, eng.cache, "deepseek-v3 MLA")
+    prefill_decode_vs_forward(params, cfg, 300, "deepseek-v3")
+    profile_prefill("deepseek-v3", params, cfg, 300, seed=9)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches, _ = moe_units(cfg, params, seq_len=1024,
+                                  name="deepseek-v3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    oneshot = one_shot_step(cfg, params, 1024, "deepseek-v3 train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_colo, k2_colo, _ = phase7_colocated(cfg, params, eng, m.round_s,
+                                           seq_len=1024,
+                                           tag="colo deepseek-v3")
+    return dict(k1={"serve_deepseek": k1, "colocated_serve_deepseek":
+                    k1_colo},
+                k2={"train_iteration_deepseek": train_launches,
+                    "train_oneshot_deepseek": oneshot,
+                    "colocated_serve_deepseek": k2_colo})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2585,13 +3040,22 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     train = phase13_train()
-    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s; whole run "
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    deepseek = phase14_deepseek(dev)
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     llama["k1"]["launches_by_path"].update(serve_danube=danube["launches"],
-                                           **mixtral["k1"])
+                                           **mixtral["k1"],
+                                           **deepseek["k1"])
     llama["k1"]["hd80"] = {k: v for k, v in danube.items()
                            if k != "launches"}
-    llama["k2"]["launches_by_path"].update(mixtral["k2"], **train)
+    llama["k2"]["launches_by_path"].update(mixtral["k2"], **train,
+                                           **deepseek["k2"])
 
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": [

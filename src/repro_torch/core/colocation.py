@@ -47,8 +47,9 @@ from repro_torch.training import peft as P
 class GraphedUnits:
     """One CUDA graph per unit of `unit_step`'s iteration, captured on one
     finetune state; `run(state, k)` runs the next k units by replaying
-    them. Units of one key (`UnitEngine.key`) share a graph, and EMBED_BWD,
-    which only moves host counters, has none. Capture first runs a whole
+    them. Units of one key (`UnitEngine.key`) share a graph, and a unit
+    with no tensor work (EMBED_BWD without "pre" layers, which only moves
+    host counters) has none. Capture first runs a whole
     iteration for real (the warm-up), then puts the state back: tensors,
     host counters and all. `pool`: the memory pool to capture into (a new
     one by default)."""
@@ -67,7 +68,7 @@ class GraphedUnits:
         for j in range(total):
             idx = (host["unit_idx"] + j) % total
             key = unit_step.key(idx)
-            if key in self.graphs or unit_step.kind(idx) == "EMBED_BWD":
+            if key in self.graphs or not unit_step.has_work(idx):
                 continue
             self.graphs[key] = G.capture(
                 functools.partial(unit_step.run, ft_state, idx), pool)

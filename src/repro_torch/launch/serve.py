@@ -26,6 +26,8 @@ are printed); on the CPU they run eagerly.
       --smoke --device cpu --colocate --use-kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
       --smoke --device cpu --use-kernels
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+      --smoke --device cpu --colocate --use-kernels
 """
 
 from __future__ import annotations

@@ -31,6 +31,8 @@ mode, the unit engine's state with `--layer-units`.
       --steps 8 --ckpt-dir /tmp/ckpt --resume
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
       --batch 2 --seq 1024 --steps 6 --use-kernels --layer-units
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b \\
+      --smoke --device cpu --steps 2 --use-kernels [--layer-units]
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""Attention layers: the GQA/MHA half (+ qk_norm, SWA windows) of the
-reference.
+"""Attention layers: GQA/MHA (+ qk_norm, SWA windows) and MLA.
 
 Port of `repro/models/attention.py` for full and sliding-window
 (unquantized) caches. Two execution paths per layer:
@@ -12,8 +11,20 @@ batching works): k/v (B, S, KV, hd), kv_pos (B, S) int32 (-1 = empty).
 A full cache has S = s_max and token p in slot p. A windowed (SWA) cache
 is a ring of S = min(s_max, window) slots, token p in slot p % S, so after
 position p is written it holds exactly positions max(0, p - S + 1)..p.
-Unlike the reference, cache writes update the given tensors in place and
-return the same dict: a decode round then moves no cache copy.
+An MLA cache (deepseek-v3) holds the latent instead: c_kv (B, S, kv_rank),
+k_rope (B, S, rope_dim), kv_pos (B, S). Unlike the reference, cache
+writes update the given tensors in place and return the same dict: a
+decode round then moves no cache copy.
+
+MLA's decode is the reference's absorbed form: W_kv_b's key half folds
+into q and its value half is applied after the latent PV product, so
+attention runs in the kv_rank space and reads only the latent cache.
+Every MLA product is a plain matrix product, as in the reference (no
+Pallas kernel covers MLA; its decode takes no `decode_attn_fn`); the
+adapted q and o projections go through the LoRA matmul kernel with
+`use_kernels`, as the GQA projections do. `mla_decode_expanded` is the
+unabsorbed form on the same cache, the oracle the absorbed decode is
+held against.
 """
 
 from __future__ import annotations
@@ -34,6 +45,15 @@ def make_cache(cfg: ModelConfig, batch: int, s_max: int,
     """Empty per-layer cache (without the leading layer axis); a ring of
     min(s_max, window) slots when windowed."""
     eff = min(s_max, window) if window else s_max
+    if cfg.mla:
+        return {
+            "c_kv": torch.zeros((batch, eff, cfg.mla_kv_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, eff, cfg.mla_rope_dim),
+                                  dtype=dtype, device=device),
+            "kv_pos": torch.full((batch, eff), -1, dtype=torch.int32,
+                                 device=device),
+        }
     shape = (batch, eff, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -169,3 +189,150 @@ def decode_attn_ref(q, kc, vc, kv_pos, positions, window: int = 0,
     o = torch.einsum("bkgs,bskh->bkgh", e.to(vc.dtype).float(), vc.float())
     o = o / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
     return o.reshape(B, H, hd).to(vc.dtype)
+
+
+# -------------------------------------------------------------- MLA paths ---
+def mla_init(normal, ones, cfg: ModelConfig, lead=()) -> Params:
+    """MLA weights at the reference's scales (`attention.py:45-59`), drawn
+    by `model.init_params`' `normal(shape, std)` and `ones(*shape)`;
+    lead = (n_layers,) adds a leading stack axis."""
+    d, H = cfg.d_model, cfg.num_heads
+    qr, kr = cfg.mla_q_rank, cfg.mla_kv_rank
+    nd, rd, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    return {"wq_a": normal(lead + (d, qr), d ** -0.5),
+            "q_norm": ones(*lead, qr),
+            "wq_b": normal(lead + (qr, H * (nd + rd)), qr ** -0.5),
+            "wkv_a": normal(lead + (d, kr + rd), d ** -0.5),
+            "kv_norm": ones(*lead, kr),
+            "wkv_b": normal(lead + (kr, H * (nd + vd)), kr ** -0.5),
+            "wo": normal(lead + (H * vd, d), (H * vd) ** -0.5)}
+
+
+def _mla_q(p: Params, x, positions, cfg: ModelConfig, lora, lora_scale,
+           use_kernels: bool = False):
+    """(q_nope, q_rope) (..., S, H, nd / rd) of x (..., S, d); the q
+    adapter sits on the latent cq, after q_norm, as in the reference."""
+    H, nd, rd = cfg.num_heads, cfg.mla_nope_dim, cfg.mla_rope_dim
+    cq = L.rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = L.lora_proj(cq, p["wq_b"], lora, "q", lora_scale, use_kernels)
+    q = q.reshape(*x.shape[:-1], H, nd + rd)
+    return q[..., :nd], L.apply_rope(q[..., nd:], positions, cfg.rope_theta)
+
+
+def _mla_latent(p: Params, x, positions, cfg: ModelConfig):
+    """(c_kv (..., S, kr), k_rope (..., S, rd)) of x (..., S, d)."""
+    kr = cfg.mla_kv_rank
+    ckv = x @ p["wkv_a"].to(x.dtype)
+    c_kv = L.rms_norm(ckv[..., :kr], p["kv_norm"], cfg.norm_eps)
+    k_rope = L.apply_rope(ckv[..., kr:].unsqueeze(-2), positions,
+                          cfg.rope_theta).squeeze(-2)
+    return c_kv, k_rope
+
+
+def mla_prefill(p: Params, x, positions, cfg: ModelConfig, *,
+                cache: Optional[Dict] = None, lora=None,
+                lora_scale: float = 0.0, use_kernels: bool = False):
+    """Full-sequence MLA: K/V expanded from the latent through W_kv_b, the
+    rope half of K shared by the heads. x: (B, S, d); positions: (B, S)
+    absolute. Returns (out, cache); a given cache takes the latent of the
+    first s_max tokens, in place (the reference's contiguous prefill
+    write)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nd, rd, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    q_nope, q_rope = _mla_q(p, x, positions, cfg, lora, lora_scale,
+                            use_kernels)
+    c_kv, k_rope = _mla_latent(p, x, positions, cfg)
+    kv = (c_kv @ p["wkv_b"].to(x.dtype)).reshape(B, S, H, nd + vd)
+    k = torch.cat([kv[..., :nd], k_rope[:, :, None, :].expand(B, S, H, rd)],
+                  dim=-1)
+    o = L.flash_attention(torch.cat([q_nope, q_rope], dim=-1), k,
+                          kv[..., nd:], causal=True,
+                          scale=(nd + rd) ** -0.5, q_offset=positions[:, 0])
+    out = L.lora_proj(o.reshape(B, S, H * vd), p["wo"], lora, "o",
+                      lora_scale, use_kernels)
+    if cache is not None:
+        n = min(S, cache["c_kv"].shape[1])
+        cache["c_kv"][:, :n] = c_kv[:, :n].to(cache["c_kv"].dtype)
+        cache["k_rope"][:, :n] = k_rope[:, :n].to(cache["k_rope"].dtype)
+        cache["kv_pos"][:, :n] = positions[:, :n].to(torch.int32)
+    return out, cache
+
+
+def _mla_decode_qkv(p: Params, x, positions, cache: Dict, cfg: ModelConfig,
+                    lora, lora_scale):
+    """The new token's (q_nope, q_rope) (B, H, nd / rd), with its latent
+    written into the cache at `positions`, in place."""
+    q_nope, q_rope = _mla_q(p, x, positions[:, None], cfg, lora, lora_scale)
+    c_kv, k_rope = _mla_latent(p, x, positions[:, None], cfg)
+    bidx = torch.arange(x.shape[0], device=x.device)
+    slot = positions.long()
+    cache["c_kv"][bidx, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][bidx, slot] = k_rope[:, 0].to(cache["k_rope"].dtype)
+    cache["kv_pos"][bidx, slot] = positions.to(torch.int32)
+    return q_nope[:, 0], q_rope[:, 0]
+
+
+def _latent_softmax(s, cache: Dict, positions):
+    """Masked softmax numerator and denominator of scores s (B, H, S): a
+    slot with no valid position gives e = 0 and a clamped denominator, so
+    its output is 0, not NaN."""
+    valid = (cache["kv_pos"] >= 0) & (cache["kv_pos"] <= positions[:, None])
+    valid = valid[:, None, :]
+    s = torch.where(valid, s, -torch.inf)
+    pmax = s.amax(dim=-1, keepdim=True)
+    pmax = torch.where(torch.isneginf(pmax), 0.0, pmax)
+    e = torch.where(valid, torch.exp(s - pmax), 0.0)
+    return e, torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+
+
+def mla_decode(p: Params, x, positions, cache: Dict, cfg: ModelConfig, *,
+               lora=None, lora_scale: float = 0.0):
+    """Absorbed-matmul MLA decode (`attention.py:384-450`): scores and PV
+    in the latent space, so the cache stays kv_rank + rope_dim per token.
+    x: (B, 1, d); positions: (B,). Scores and the PV sum are f32 (the
+    reference's preferred_element_type), the softmax weights cast to the
+    cache's dtype before PV, as `decode_attn_ref` does. Returns (out
+    (B, 1, d), cache)."""
+    B = x.shape[0]
+    H = cfg.num_heads
+    nd, rd, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    kr = cfg.mla_kv_rank
+    q_nope, q_rope = _mla_decode_qkv(p, x, positions, cache, cfg, lora,
+                                     lora_scale)
+    wkv_b = p["wkv_b"].to(x.dtype).reshape(kr, H, nd + vd)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, wkv_b[..., :nd])
+    c_kv = cache["c_kv"].float()
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), c_kv)
+         + torch.einsum("bhr,bsr->bhs", q_rope.float(),
+                        cache["k_rope"].float())) * (nd + rd) ** -0.5
+    e, denom = _latent_softmax(s, cache, positions)
+    o_lat = torch.einsum("bhs,bsr->bhr", e.to(cache["c_kv"].dtype).float(),
+                         c_kv) / denom
+    o = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), wkv_b[..., nd:])
+    out = L.lora_proj(o.reshape(B, 1, H * vd), p["wo"], lora, "o",
+                      lora_scale)
+    return out, cache
+
+
+def mla_decode_expanded(p: Params, x, positions, cache: Dict,
+                        cfg: ModelConfig):
+    """The unabsorbed form of `mla_decode`, in f32: every cached token's
+    K and V expanded from its latent through W_kv_b, then plain attention
+    over them. The oracle of the absorbed product (no Pallas kernel covers
+    MLA); writes the new token's latent as `mla_decode` does. Returns
+    (B, 1, d) in x's dtype."""
+    B = x.shape[0]
+    H = cfg.num_heads
+    nd, rd, vd = cfg.mla_nope_dim, cfg.mla_rope_dim, cfg.mla_v_dim
+    kr = cfg.mla_kv_rank
+    q_nope, q_rope = _mla_decode_qkv(p, x, positions, cache, cfg, None, 0.0)
+    wkv_b = p["wkv_b"].float().reshape(kr, H, nd + vd)
+    kv = torch.einsum("bsr,rho->bsho", cache["c_kv"].float(), wkv_b)
+    s = (torch.einsum("bhn,bshn->bhs", q_nope.float(), kv[..., :nd])
+         + torch.einsum("bhr,bsr->bhs", q_rope.float(),
+                        cache["k_rope"].float())) * (nd + rd) ** -0.5
+    e, denom = _latent_softmax(s, cache, positions)
+    o = torch.einsum("bhs,bshv->bhv", e, kv[..., nd:]) / denom
+    out = o.reshape(B, H * vd) @ p["wo"].float()
+    return out[:, None].to(x.dtype)

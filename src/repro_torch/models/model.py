@@ -1,33 +1,44 @@
 """Model assembly: the dense decoder (full or sliding-window attention),
-the Mixture-of-Experts decoder and the SSM family, serving and training
-paths.
+the Mixture-of-Experts decoder (with deepseek-v3's MLA attention, leading
+dense layers and multi-token-prediction loss) and the SSM family,
+serving and training paths.
 
 Port of the dense, MoE and SSM halves of `repro/models/model.py`. Params
 are a dict of tensors under the JAX pytree's names:
   {"embed": (V, d), "final_norm": (d,), ["unembed": (V, d)],
-   "pre": [], "post": [],
+   "pre": [layer, ...],      # unrolled leading layers, no layer axis
    "scan": {"ln1", "attn": {"wq", "wk", "wv", "wo", ["q_norm", "k_norm"]},
-            "ln2", "mlp": {"gate", "up", "down"}}}   # leading axis = layer
+            "ln2", "mlp": {"gate", "up", "down"}},   # leading axis = layer
+   "post": [],
+   ["mtp": {"norm_h", "norm_e", "proj", "layer"}]}
 or, for an MoE stack (`mixtral-8x7b`), "moe": {"router", "gate", "up",
-"down", ["shared"]} in place of "mlp" (`models/moe.py`), or, for the SSM
-family (`mamba2-780m`),
+"down", ["shared"]} in place of "mlp" (`models/moe.py`); with MLA
+(`deepseek-v3-671b`) "attn" is {"wq_a", "q_norm", "wq_b", "wkv_a",
+"kv_norm", "wkv_b", "wo"} (`attention.mla_init`), `first_dense_layers`
+dense layers of kind "attn" come first in "pre", and "mtp" holds the
+multi-token-prediction head. For the SSM family (`mamba2-780m`),
    "scan": {"ln1", "ssm": {"in_proj", "conv_w", "conv_b", "A_log",
                            "dt_bias", "D", "gate_norm", "out_proj"}},
-and caches mirror it: {"pre": [], "scan": {"k", "v", "kv_pos"}, "post": []}
-with k/v (n_layers, B, S, KV, hd), S = s_max or, for sliding-window
-attention, a ring of min(s_max, window) slots (`attention.make_cache`);
-or {"h": (n_layers, B, nh, hd, ds) f32, "conv": (n_layers, B, w-1, dinner
+and caches mirror it: {"pre": [cache, ...], "scan": {"k", "v", "kv_pos"},
+"post": []} with k/v (n_layers, B, S, KV, hd), S = s_max or, for
+sliding-window attention, a ring of min(s_max, window) slots
+(`attention.make_cache`); MLA's latent {"c_kv", "k_rope", "kv_pos"}; or
+{"h": (n_layers, B, nh, hd, ds) f32, "conv": (n_layers, B, w-1, dinner
 + 2 ds) bf16} for the SSM family.
-LoRA adapters mirror it too: {"pre": [], "scan": {name: {"a": (n_layers,
-d_in, r), "b": ...}}, "post": []} with f32 leaves (`models/lora.py`).
+LoRA adapters mirror it too: {"pre": [{name: {"a": (d_in, r), "b": ...}},
+...], "scan": {name: {"a": (n_layers, d_in, r), "b": ...}}, "post": []}
+with f32 leaves (`models/lora.py`).
 
 The reference's `jax.lax.scan` over the stacked params becomes a Python loop
 that indexes layer `i` and writes that layer's cache in place: the caller's
-cache tensors are updated, and the returned cache is the same dict.
+cache tensors are updated, and the returned cache is the same dict. The
+"pre" layers run first, in prefill, decode and forward alike, as in the
+reference.
 Families the port does not run yet raise `NotImplementedError` naming the
 ROADMAP item that ports them. An MoE layer's load-balance loss is
 `apply_layer`'s third result; `forward` sums it over the layers and
-`loss_fn` adds MOE_AUX_COEF times its mean, as the reference does.
+`loss_fn` adds MOE_AUX_COEF times its mean, and MTP_COEF times the MTP
+head's cross-entropy, as the reference does.
 """
 
 from __future__ import annotations
@@ -49,12 +60,10 @@ from repro_torch.models.config import ModelConfig
 Params = Dict[str, Any]
 
 MOE_AUX_COEF = 0.01
+MTP_COEF = 0.3
 
 # (predicate, what, ROADMAP item) for configurations not ported yet
 _UNPORTED = (
-    (lambda c: c.mla, "MLA attention", "5.3"),
-    (lambda c: c.first_dense_layers,
-     "leading dense layers of an MoE stack", "5.3"),
     (lambda c: c.family == "hybrid", "the hybrid RG-LRU family", "5.4"),
     (lambda c: c.enc_layers or c.cross_attention or
      c.family in ("encdec", "audio"), "the encoder-decoder family", "5.5"),
@@ -78,7 +87,8 @@ def _plan(cfg: ModelConfig):
     if cfg.family == "ssm":
         return [], "ssm", cfg.num_layers, []
     if cfg.moe:
-        return [], "moe", cfg.scanned_layers, []
+        return ["attn"] * cfg.first_dense_layers, "moe", \
+            cfg.scanned_layers, []
     return [], "attn", cfg.num_layers, []
 
 
@@ -92,8 +102,10 @@ def _layer_window(cfg: ModelConfig) -> int:
 def init_params(cfg: ModelConfig, seed: int = 0, *, dtype=torch.bfloat16,
                 device=None) -> Params:
     """Random weights at the reference's scales (`model.py:40-133`), from a
-    torch generator on the device (not the reference's numbers)."""
-    _, scan_kind, n, _ = _plan(cfg)
+    torch generator on the device (not the reference's numbers). Each
+    leaf is drawn one layer at a time, an MoE layer one expert at a
+    time: the f32 draw never exceeds one layer's leaf."""
+    pre_kinds, scan_kind, n, _ = _plan(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -102,7 +114,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, dtype=torch.bfloat16,
 
     def normal(shape, std):
         out = torch.empty(shape, dtype=dtype, device=dev)
-        # one layer at a time: the f32 draw never exceeds one layer's size
         for sub in (out if len(shape) == 3 else [out]):
             sub.copy_(torch.randn(sub.shape, generator=gen, device=dev) * std)
         return out
@@ -110,42 +121,57 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, dtype=torch.bfloat16,
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
 
-    if scan_kind == "ssm":
-        p: Params = {"embed": normal((V, d), d ** -0.5), "final_norm": ones(d),
-                     "pre": [],
-                     "scan": {"ln1": ones(n, d),
-                              "ssm": SSM.ssm_init(gen, cfg, n, dtype=dtype)},
-                     "post": []}
-    else:
-        attn = {"wq": normal((n, d, H * hd), d ** -0.5),
-                "wk": normal((n, d, KV * hd), d ** -0.5),
-                "wv": normal((n, d, KV * hd), d ** -0.5),
-                "wo": normal((n, H * hd, d), (H * hd) ** -0.5)}
-        if cfg.qk_norm:
-            attn["q_norm"] = ones(n, hd)
-            attn["k_norm"] = ones(n, hd)
-        scan = {"ln1": ones(n, d), "attn": attn, "ln2": ones(n, d)}
-        if scan_kind == "moe":
-            scan["moe"] = M.moe_init(gen, cfg, n, dtype=dtype)
+    def attn_layer(kind, n_layers=0):
+        """Layer weights of an "attn" or "moe" kind; n_layers > 0 stacks
+        them on a leading axis."""
+        lead = (n_layers,) if n_layers else ()
+        if cfg.mla:
+            attn = A.mla_init(normal, ones, cfg, lead)
         else:
-            scan["mlp"] = {"gate": normal((n, d, ff), d ** -0.5),
-                           "up": normal((n, d, ff), d ** -0.5),
-                           "down": normal((n, ff, d), ff ** -0.5)}
-        p = {"embed": normal((V, d), d ** -0.5), "final_norm": ones(d),
-             "pre": [], "scan": scan, "post": []}
+            attn = {"wq": normal(lead + (d, H * hd), d ** -0.5),
+                    "wk": normal(lead + (d, KV * hd), d ** -0.5),
+                    "wv": normal(lead + (d, KV * hd), d ** -0.5),
+                    "wo": normal(lead + (H * hd, d), (H * hd) ** -0.5)}
+            if cfg.qk_norm:
+                attn["q_norm"] = ones(*lead, hd)
+                attn["k_norm"] = ones(*lead, hd)
+        layer = {"ln1": ones(*lead, d), "attn": attn, "ln2": ones(*lead, d)}
+        if kind == "moe":
+            layer["moe"] = M.moe_init(gen, cfg, n_layers, dtype=dtype)
+        else:
+            layer["mlp"] = {"gate": normal(lead + (d, ff), d ** -0.5),
+                            "up": normal(lead + (d, ff), d ** -0.5),
+                            "down": normal(lead + (ff, d), ff ** -0.5)}
+        return layer
+
+    pre = [attn_layer(kind) for kind in pre_kinds]
+    if scan_kind == "ssm":                  # the embedding first, as before
+        embed = normal((V, d), d ** -0.5)
+        scan = {"ln1": ones(n, d), "ssm": SSM.ssm_init(gen, cfg, n,
+                                                       dtype=dtype)}
+    else:
+        scan = attn_layer(scan_kind, n)
+        embed = normal((V, d), d ** -0.5)
+    p: Params = {"embed": embed, "final_norm": ones(d), "pre": pre,
+                 "scan": scan, "post": []}
     if not cfg.tie_embeddings:
         p["unembed"] = normal((V, d), d ** -0.5)
+    if cfg.mtp:
+        p["mtp"] = {"norm_h": ones(d), "norm_e": ones(d),
+                    "proj": normal((2 * d, d), (2 * d) ** -0.5),
+                    "layer": attn_layer("attn")}
     return p
 
 
 def init_adapters(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """LoRA adapters mirroring pre/scan/post (f32 leaves, B = 0), A drawn
     from a torch generator on the device (not the reference's numbers)."""
-    _, scan_kind, n, _ = _plan(cfg)
+    pre_kinds, scan_kind, n, _ = _plan(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return {"pre": [],
+    return {"pre": [LR.init_layer_adapters(gen, cfg, kind, device=dev)
+                    for kind in pre_kinds],
             "scan": LR.init_layer_adapters(gen, cfg, scan_kind, n,
                                            device=dev),
             "post": []}
@@ -154,16 +180,20 @@ def init_adapters(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
 # ==================================================================== cache
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                dtype=torch.bfloat16, device=None) -> Params:
-    """Per-layer caches stacked over the layers. The SSM family's state is
-    f32 `h` and bf16 `conv` whatever `dtype` says (`make_ssm_state`)."""
-    _, scan_kind, n, _ = _plan(cfg)
+    """Per-layer caches: one per "pre" layer, and the scanned layers'
+    stacked on a leading axis. The SSM family's state is f32 `h` and bf16
+    `conv` whatever `dtype` says (`make_ssm_state`)."""
+    pre_kinds, scan_kind, n, _ = _plan(cfg)
     dev = resolve_device(device)
-    one = SSM.make_ssm_state(cfg, batch, device=dev) if scan_kind == "ssm" \
-        else A.make_cache(cfg, batch, s_max, dtype, dev,
-                          window=_layer_window(cfg))
-    return {"pre": [],
+
+    def one():
+        return A.make_cache(cfg, batch, s_max, dtype, dev,
+                            window=_layer_window(cfg))
+    stacked = SSM.make_ssm_state(cfg, batch, device=dev) \
+        if scan_kind == "ssm" else one()
+    return {"pre": [one() for _ in pre_kinds],
             "scan": {k: v[None].repeat_interleave(n, dim=0)
-                     for k, v in one.items()},
+                     for k, v in stacked.items()},
             "post": []}
 
 
@@ -172,6 +202,14 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _layers(cfg: ModelConfig, tree):
+    """[(kind, layer)] in depth order of a params, cache or adapter tree:
+    the "pre" layers, then the scanned stack's layers as views."""
+    pre_kinds, scan_kind, n, _ = _plan(cfg)
+    return list(zip(pre_kinds, tree["pre"])) + \
+        [(scan_kind, _layer(tree["scan"], i)) for i in range(n)]
 
 
 # ============================================================ layer apply
@@ -185,8 +223,9 @@ def apply_layer(lp: Params, x, positions, cfg: ModelConfig, kind: str, *,
     load-balance loss (an f32 scalar), 0.0 for the other kinds.
 
     lora: pairs form {name: (A, B)} of this layer's adapters. use_kernels
-    routes decode attention through the paged decode kernel (windowed
-    caches too), the adapted projections through the LoRA matmul kernel,
+    routes GQA decode attention through the paged decode kernel (windowed
+    caches too; MLA's decode has no kernel, in the reference either), the
+    adapted projections through the LoRA matmul kernel,
     and the SSM prefill's scan through the SSD scan kernel. The SSM's
     "full" mode (training) keeps the plain, differentiable scan: the
     kernel has no backward."""
@@ -208,7 +247,15 @@ def apply_layer(lp: Params, x, positions, cfg: ModelConfig, kind: str, *,
                                   "item 5)")
     window = _layer_window(cfg)
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if mode == "decode":
+    if cfg.mla:                 # no decode kernel: the reference's has none
+        if mode == "decode":
+            attn_out, cache = A.mla_decode(lp["attn"], h, positions, cache,
+                                           cfg, lora=lora, lora_scale=scale)
+        else:
+            attn_out, cache = A.mla_prefill(
+                lp["attn"], h, positions, cfg, cache=cache, lora=lora,
+                lora_scale=scale, use_kernels=use_kernels)
+    elif mode == "decode":
         attn_out, cache = A.attn_decode(
             lp["attn"], h, positions, cache, cfg, window=window, lora=lora,
             lora_scale=scale,
@@ -253,29 +300,26 @@ def prefill(params, cfg: ModelConfig, batch: Dict, cache, *,
     use_kernels routes the SSM family's scan through the SSD scan kernel
     (`kernels/ops.ssd_scan`); prefill attention is plain torch either way
     (the reference's is jnp, no kernel)."""
-    _, scan_kind, n, _ = _plan(cfg)
     x, positions, _ = _embed_inputs(params, cfg, batch)
-    for i in range(n):
-        x, _, _ = apply_layer(_layer(params["scan"], i), x, positions, cfg,
-                              scan_kind, mode="prefill",
-                              cache=_layer(cache["scan"], i),
-                              use_kernels=use_kernels)
+    for (kind, lp), (_, lc) in zip(_layers(cfg, params),
+                                   _layers(cfg, cache)):
+        x, _, _ = apply_layer(lp, x, positions, cfg, kind, mode="prefill",
+                              cache=lc, use_kernels=use_kernels)
     return _head(params, cfg, x[:, -1:]), cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens, positions, cache, *,
                 use_kernels: bool = False):
     """One decode token. tokens/positions: (B,). Returns (logits (B, V),
-    cache). use_kernels routes decode attention through the CUDA kernel
-    (`kernels/ops.decode_attention`); the SSM family's decode is plain
-    torch either way (the reference's is jnp, no kernel)."""
-    _, scan_kind, n, _ = _plan(cfg)
+    cache). use_kernels routes GQA decode attention through the CUDA
+    kernel (`kernels/ops.decode_attention`); MLA's and the SSM family's
+    decode are plain torch either way (the reference's are jnp, no
+    kernel)."""
     x = L.embed(tokens.long()[:, None], params["embed"])     # (B, 1, d)
-    for i in range(n):
-        x, _, _ = apply_layer(_layer(params["scan"], i), x, positions, cfg,
-                              scan_kind, mode="decode",
-                              cache=_layer(cache["scan"], i),
-                              use_kernels=use_kernels)
+    for (kind, lp), (_, lc) in zip(_layers(cfg, params),
+                                   _layers(cfg, cache)):
+        x, _, _ = apply_layer(lp, x, positions, cfg, kind, mode="decode",
+                              cache=lc, use_kernels=use_kernels)
     return _head(params, cfg, x), cache
 
 
@@ -299,26 +343,28 @@ def forward(params, cfg: ModelConfig, batch: Dict, *, adapters=None,
     with return_hidden=True the normed final hidden states instead of
     logits (loss_fn fuses the projection into the chunked CE). remat
     recomputes each layer in the backward pass (`torch.utils.checkpoint`,
-    the reference's `jax.checkpoint` of the scan body)."""
-    _, scan_kind, n, _ = _plan(cfg)
+    the reference's `jax.checkpoint` of the scan body; the port's takes
+    the "pre" layers too, which changes memory, not values)."""
     x, positions, offset = _embed_inputs(params, cfg, batch)
     scale = LR.lora_scale(cfg)
-    scan_ad = None if adapters is None else adapters["scan"]
+    layers = _layers(cfg, params)
+    ads = [None] * len(layers) if adapters is None else \
+        [LR.as_pairs(ad) for _, ad in _layers(cfg, adapters)]
 
-    def layer(h, i):
-        ad = None if scan_ad is None else LR.slice_adapters(scan_ad, i)
-        h, _, a = apply_layer(_layer(params["scan"], i), h, positions, cfg,
-                              scan_kind, mode="full", lora=ad, scale=scale,
+    def layer(h, j):
+        kind, lp = layers[j]
+        h, _, a = apply_layer(lp, h, positions, cfg, kind, mode="full",
+                              lora=ads[j], scale=scale,
                               use_kernels=use_kernels)
         return h, a
 
     aux = 0.0                   # a tensor once an MoE layer adds its loss
-    for i in range(n):
+    for j in range(len(layers)):
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(layer, x, i, use_reentrant=False,
+            x, a = checkpoint(layer, x, j, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            x, a = layer(x, i)
+            x, a = layer(x, j)
         aux = aux + a
     if not isinstance(aux, torch.Tensor):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -331,9 +377,11 @@ def forward(params, cfg: ModelConfig, batch: Dict, *, adapters=None,
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict, *, adapters=None,
             use_kernels: bool = False, remat: bool = True):
-    """Cross-entropy (+ MoE aux) loss for (PEFT) training; the final
+    """Cross-entropy (+ MoE aux + MTP) loss for (PEFT) training; the final
     projection is fused into the chunked CE, which never holds the (B, S,
-    V) logits."""
+    V) logits. The MTP term reads frozen weights only (`_mtp_loss`), so
+    it adds to the loss and to no adapter's gradient, as in the
+    reference."""
     hidden, aux = forward(params, cfg, batch, adapters=adapters,
                           use_kernels=use_kernels, remat=remat,
                           return_hidden=True)
@@ -342,6 +390,33 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *, adapters=None,
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     ce = L.chunked_softmax_xent(hidden[:, :-1], table, labels[:, 1:],
                                 None if mask is None else mask[:, 1:])
-    # no MTP head (deepseek-v3, ROADMAP.md §1 item 5.3)
     total = ce + MOE_AUX_COEF * aux / max(cfg.num_layers, 1)
-    return total, {"ce": ce, "aux": aux}
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp and "mtp" in params:
+        mtp_ce = _mtp_loss(params, cfg, batch)
+        total = total + MTP_COEF * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return total, metrics
+
+
+def _mtp_loss(params, cfg: ModelConfig, batch: Dict):
+    """DeepSeek-V3 multi-token prediction as the reference approximates
+    it (`model.py:464-482`): predict token t+2 from the normed embeddings
+    of tokens t and t+1, projected and run through one dense "attn" layer
+    (no cache, no adapters) over positions 0..S-2. Its cross-entropy is
+    the chunked one (never (B, S, V) logits), unmasked as in the
+    reference."""
+    mp = params["mtp"]
+    tokens, labels = batch["tokens"].long(), batch["labels"]
+    B, S = tokens.shape
+    h = torch.cat([L.rms_norm(L.embed(tokens[:, :-1], params["embed"]),
+                              mp["norm_h"], cfg.norm_eps),
+                   L.rms_norm(L.embed(tokens[:, 1:], params["embed"]),
+                              mp["norm_e"], cfg.norm_eps)], dim=-1)
+    h = h @ mp["proj"].to(h.dtype)
+    positions = torch.arange(S - 1, dtype=torch.int32,
+                             device=h.device).expand(B, S - 1)
+    h, _, _ = apply_layer(mp["layer"], h, positions, cfg, "attn",
+                          mode="full")
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return L.chunked_softmax_xent(h[:, :-1], table, labels[:, 2:])

@@ -19,7 +19,11 @@ becomes `scatter_reduce_(..., "amax")` on a flat (G, E * C) view: a slot
 takes at most one kept assignment, and a dropped one writes -1, so the
 plan is the same whatever order the atomics run in (the reference's
 `.at[].add` builds per-slot weights that nothing reads, and is left
-out). The expert FFN is three batched
+out). The dispatch's backward gathers each token's slot gradients in a
+fixed order (`_Dispatch`), where autograd's would scatter-add them with
+atomics, so the layer's backward is bit-reproducible at any top-k (a
+graphed finetune unit then equals its eager twin). The expert FFN is
+three batched
 products over the expert axis (`torch.bmm`): plain matrix products, which
 the reference leaves to XLA outside any Pallas kernel.
 """
@@ -83,6 +87,46 @@ def _rank_in_expert(e_flat: torch.Tensor, E: int) -> torch.Tensor:
     return ranks.to(torch.int32)
 
 
+class _Dispatch(torch.autograd.Function):
+    """xe[g, s] = xt[g, slot_tok[g, s]], 0 where the slot holds no token.
+
+    Autograd's backward of that gather is a scatter-add, whose atomics add
+    a token's up to k slot gradients in any order: with k > 2 two runs (a
+    CUDA graph and its eager twin) then differ in the last bits. This
+    backward gathers instead: token t's gradient is the sum, in choice
+    order and in f32, of the gradients of the slots its kept assignments
+    fill (`slot_of`; a dropped one fills none)."""
+
+    @staticmethod
+    def forward(ctx, xt, slot_tok, slot_of, keep, k):
+        G, T, d = xt.shape
+        ids = slot_tok.clamp(min=0)[..., None].expand(G, slot_tok.shape[1], d)
+        ctx.save_for_backward(slot_of, keep)
+        ctx.k, ctx.T = k, T
+        return torch.where((slot_tok >= 0)[..., None],
+                           torch.gather(xt, 1, ids), 0)
+
+    @staticmethod
+    def backward(ctx, dxe):
+        slot_of, keep = ctx.saved_tensors
+        k, T = ctx.k, ctx.T
+        G, _, d = dxe.shape
+        dx = torch.zeros((G, T, d), dtype=torch.float32, device=dxe.device)
+        for ki in range(k):
+            part = torch.gather(dxe, 1, slot_of[:, ki::k, None].expand(G, T,
+                                                                       d))
+            dx += torch.where(keep[:, ki::k, None], part.float(), 0.0)
+        return dx.to(dxe.dtype), None, None, None, None
+
+
+def _top_k(scores: torch.Tensor, k: int):
+    """The k largest scores and their experts, ties to the lower index, as
+    `jax.lax.top_k` breaks them (`torch.topk` does not promise an order
+    among equals; a saturated sigmoid router scores several experts 1.0)."""
+    w, i = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return w[..., :k], i[..., :k]
+
+
 def moe_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 router_type: str = "softmax", lora=None,
                 lora_scale: float = 0.0,
@@ -111,7 +155,7 @@ def moe_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         scores = torch.sigmoid(logits)
     else:
         scores = torch.softmax(logits, dim=-1)
-    top_w, top_i = torch.topk(scores, k, dim=-1)                 # (G, T, k)
+    top_w, top_i = _top_k(scores, k)                             # (G, T, k)
     top_w = top_w / torch.clamp(top_w.sum(dim=-1, keepdim=True), min=1e-9)
 
     A = T * k
@@ -129,9 +173,7 @@ def moe_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                              reduce="amax")
 
     # --- dispatch: a direct (G, E, C, d) gather ---------------------------
-    flat_ids = slot_tok.clamp(min=0)
-    xe = torch.gather(xt, 1, flat_ids[..., None].expand(G, E * C, d))
-    xe = torch.where((slot_tok >= 0)[..., None], xe, 0)
+    xe = _Dispatch.apply(xt, slot_tok, slot_of, keep, k)
     xe = xe.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
 
     # --- expert FFN: batched over the experts -----------------------------

@@ -9,7 +9,9 @@ same `np.random.default_rng(seed)`, so a seeded trace is the same on both
 sides. Greedy argmax is taken on the device, with one host copy per round.
 `use_kernels` reaches prefill as well as decode (the reference engine
 passes it to decode only), so an SSM model's admissions run the SSD scan
-kernel. The slot insert copies every per-layer cache leaf, KV or SSM state.
+kernel. The slot insert copies every per-layer cache leaf, KV, MLA latent
+or SSM state: a "pre" layer's cache (no layer axis) at [slot], the stacked
+caches at [:, slot].
 A decode round writes the last token at position context_len - 1, so the
 first decode token goes to position prompt_len; the reference writes it at
 context_len and never writes prompt_len, which leaves a stale slot that
@@ -191,6 +193,9 @@ class ServingEngine:
         return True
 
     def _insert_slot_cache(self, slot: int, one_cache) -> None:
+        for dst, src in zip(self.cache["pre"], one_cache["pre"]):
+            for name, t in dst.items():          # no layer axis
+                t[slot] = src[name][0]
         for name, dst in self.cache["scan"].items():
             dst[:, slot] = one_cache["scan"][name][:, 0]
 

@@ -4,9 +4,16 @@ Port of `repro/training/peft.py`. An iteration is a sequence of units, each
 of which `unit_step` runs one at a time, so a co-located round can run `k`
 of them after its decode step (`core/colocation.py`):
 
-  per microbatch: EMBED | L x FWD(layer i) | HEAD(loss, dx)
-                  | L x BWD(layer j, descending) | EMBED_BWD(data advance)
+  per microbatch: EMBED(+pre fwd) | L x FWD(layer i) | HEAD(loss, dx)
+                  | L x BWD(layer j, descending)
+                  | EMBED_BWD(pre bwd + data advance)
   then:           OPT (AdamW on the accumulated adapter grads)
+
+EMBED runs the embedding and the model's "pre" layers (deepseek-v3's
+leading dense layers) with their adapters; EMBED_BWD recomputes them with
+the adapters as leaves and adds their gradients, as the reference's
+`front` does (`repro/training/peft.py:122-138`, `:240-255`). A model
+without "pre" layers does no tensor work in EMBED_BWD.
 
 FWD units run without autograd and save each layer's input as a bf16
 residual. BWD units recompute their layer from that residual and call
@@ -28,10 +35,17 @@ returns the same dict. A unit then copies no (L+1, B, S, d) stack, and a
 graph captured on the state reads and writes the same memory at every
 replay.
 
-`use_kernels` routes every adapted projection of the FWD and BWD units
-through the LoRA matmul kernel: 7 launches per FWD unit and 14 per BWD unit
-(the recomputed forward and the dx of each projection) on a dense layer
-with all seven targets adapted.
+`use_kernels` routes every adapted projection of the units through the
+LoRA matmul kernel: 7 launches per FWD unit and 14 per BWD unit (the
+recomputed forward and the dx of each projection) on a dense layer with
+all seven targets adapted; EMBED and EMBED_BWD launch it for the "pre"
+layers' projections: EMBED once each, EMBED_BWD three times (forward,
+the recompute of its per-layer checkpoint, dx) less the dx where a
+projection's input depends on no adapter (the first layer's q).
+
+The units train on the CE alone: an MoE layer's aux loss and the MTP term
+that `loss_fn` adds are dropped, as the reference's units drop them (its
+HEAD is CE only, `repro/training/peft.py:174-188`).
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import lora as LR
@@ -130,7 +145,8 @@ class UnitEngine:
     A call has three parts, which the CUDA graph runner
     (`core/colocation.py`) takes apart:
       prepare(state)   host side, outside any graph: a microbatch's EMBED
-                       copies its tokens from the staged ring (at the host's
+                       (and, with "pre" layers, its EMBED_BWD) copies its
+                       tokens from the staged ring (at the host's
                        `data_idx`) into a fixed batch buffer, its HEAD the
                        labels and mask; OPT writes its step's lr and bias
                        corrections into a small f32 tensor (`hp`).
@@ -143,7 +159,7 @@ class UnitEngine:
 
     def __init__(self, cfg: ModelConfig, pc: PeftConfig, params, *,
                  use_kernels: bool = False):
-        _, self.scan_kind, self.n_scan, _ = MD._plan(cfg)
+        self.pre_kinds, self.scan_kind, self.n_scan, _ = MD._plan(cfg)
         self.cfg, self.pc, self.params = cfg, pc, params
         self.use_kernels = use_kernels
         self.scale = LR.lora_scale(cfg)
@@ -180,8 +196,11 @@ class UnitEngine:
             self.batch[k].copy_(src)
 
     def prepare(self, state) -> None:
-        kind = self.kind(state["unit_idx"])
-        if kind == "EMBED":
+        unit_idx = state["unit_idx"]
+        kind = self.kind(unit_idx)
+        if kind in ("EMBED", "EMBED_BWD") and self.has_work(unit_idx):
+            # EMBED_BWD recomputes the front on its microbatch's tokens
+            # (the same ring entry: `data_idx` moves after it)
             self._stage(state, ["tokens"])
         elif kind == "HEAD":
             self._stage(state, [k for k in state["data"] if k != "tokens"])
@@ -203,7 +222,28 @@ class UnitEngine:
             state["iter"] += 1
         state["unit_idx"] = (unit_idx + 1) % self.total_units
 
+    def has_work(self, unit_idx: int) -> bool:
+        """Whether the unit does tensor work (EMBED_BWD only with "pre"
+        layers)."""
+        return self.kind(unit_idx) != "EMBED_BWD" or bool(self.pre_kinds)
+
     # ---------------------------------------------------------- device --
+    def _front(self, pre_ads, remat: bool = False):
+        """The embedding and the "pre" layers (pairs-form adapters). remat
+        recomputes each layer in the backward pass, so that autograd holds
+        one layer's activations at a time (`torch.utils.checkpoint`)."""
+        x, _, _ = MD._embed_inputs(self.params, self.cfg,
+                                   {"tokens": self.batch["tokens"]})
+        for kind, lp, ad in zip(self.pre_kinds, self.params["pre"],
+                                pre_ads):
+            def layer(h, lp=lp, kind=kind, ad=ad):
+                return MD.apply_layer(lp, h, self.positions, self.cfg, kind,
+                                      mode="full", lora=ad, scale=self.scale,
+                                      use_kernels=self.use_kernels)[0]
+            x = checkpoint(layer, x, use_reentrant=False,
+                           preserve_rng_state=False) if remat else layer(x)
+        return x
+
     def _layer(self, i, x, lora):
         # an MoE layer's aux loss is dropped, as the reference's units drop
         # it (`repro/training/peft.py:156`, `:224`): unlike `loss_fn`, the
@@ -215,10 +255,27 @@ class UnitEngine:
         return y
 
     def _embed(self, state, _u):
-        x, _, _ = MD._embed_inputs(self.params, self.cfg,
-                                   {"tokens": self.batch["tokens"]})
+        x = self._front([LR.as_pairs(ad) for ad in state["adapters"]["pre"]])
         state["x"].copy_(x)
         state["residuals"][0] = x
+
+    def _embed_bwd(self, state, _u):
+        """The "pre" layers' adapter grads: the front recomputed on this
+        microbatch's tokens, back-propagated from dy = state["x"], each
+        layer recomputed once more in the backward pass (the reference's
+        attention recomputes its softmax blocks in its custom VJP; the
+        port's plain autograd would hold every pre layer's f32 attention
+        blocks at once: ~15 GB for deepseek-v3's 3 layers at 2 x 1024)."""
+        ads = [{name: {k: t.detach().requires_grad_() for k, t in v.items()}
+                for name, v in layer.items()}
+               for layer in state["adapters"]["pre"]]
+        leaves = tree_leaves(ads)
+        with torch.enable_grad():
+            x = self._front([LR.as_pairs(ad) for ad in ads], remat=True)
+            grads = torch.autograd.grad(x, leaves,
+                                        grad_outputs=state["x"].to(x.dtype))
+        for acc, g in zip(tree_leaves(state["grads"]["pre"]), grads):
+            acc += g.float()
 
     def _fwd(self, state, u):
         i = u - 1
@@ -270,12 +327,13 @@ class UnitEngine:
         state["loss"].zero_()
 
     def run(self, state, unit_idx: int) -> None:
-        """Unit `unit_idx`'s tensor work (nothing for EMBED_BWD)."""
-        kind = self.kind(unit_idx)
-        if kind == "EMBED_BWD":
+        """Unit `unit_idx`'s tensor work (none for EMBED_BWD without "pre"
+        layers)."""
+        if not self.has_work(unit_idx):
             return
         fn = {"EMBED": self._embed, "FWD": self._fwd, "HEAD": self._head,
-              "BWD": self._bwd, "OPT": self._opt}[kind]
+              "BWD": self._bwd, "EMBED_BWD": self._embed_bwd,
+              "OPT": self._opt}[self.kind(unit_idx)]
         with torch.no_grad():
             fn(state, unit_idx % self.upm)
 

@@ -196,6 +196,85 @@ def test_moe_colocated_round_equals_decode_plus_units(use_kernels):
                                                 rel=1e-2)
 
 
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_deepseek_colocated_round_equals_decode_plus_units(use_kernels):
+    """One co-located round of k = 6 units on deepseek-v3's smoke config
+    (an MLA dense layer in "pre", 4 MLA + MoE layers): EMBED with the pre
+    layer's adapters, 4 FWD, HEAD. Bit for bit a decode step plus 6
+    separate units inside torch (no K1: MLA decode has no kernel; K2's 5
+    per EMBED and per FWD unit with the kernels on), and within the bf16
+    tolerance (2e-2 of the largest entry) of the JAX runner's round. bf16
+    weights and cache, as served: the reference's EMBED_BWD cannot be
+    traced on f32 weights (ROADMAP.md §3), and its round traces every
+    unit."""
+    jcfg = jconfigs.smoke_config("deepseek-v3-671b")
+    tcfg = smoke_config("deepseek-v3-671b")
+    params_j = JMD.init_params(jcfg, jax.random.PRNGKey(0))
+    pc_j = JP.PeftConfig(micro_batch=2, seq_len=16, accum=1)
+    staged = jdata.Prefetcher(jdata.SyntheticCorpus(jdata.DataConfig(
+        jcfg.vocab_size, 16, 2, seed=4)).batches(), 2).stacked()
+    ft0_j = JP.init_ft_state(jcfg, pc_j, params_j, jax.random.PRNGKey(1),
+                             staged)
+    rng = np.random.default_rng(6)
+    ft0_j["adapters"] = jax.tree_util.tree_map_with_path(
+        lambda p, x: jnp.asarray(rng.normal(size=x.shape).astype(np.float32)
+                                 * 0.05) if p[-1].key == "b" else x,
+        ft0_j["adapters"])
+    ft0_j = jax.tree.map(np.asarray, ft0_j)
+    prompts = rng.integers(0, jcfg.vocab_size, size=(3, 20)).astype(np.int32)
+    _, cache0_j = JMD.prefill(params_j, jcfg,
+                              {"tokens": jnp.asarray(prompts)},
+                              JMD.init_cache(jcfg, 3, 48))
+    cache0_j = jax.tree.map(np.asarray, cache0_j)
+    tok = np.array([1, 2, 3], np.int32)
+    pos = np.full((3,), 20, np.int32)
+    lg_j, cache_j, ft_j = jax.tree.map(np.asarray, JRunner(
+        jcfg, params_j, jcfg, params_j, pc_j, k_max=6, donate=False
+    ).run_round(6, tok, pos, cache0_j, ft0_j))
+
+    params, ft0, cache0 = to_torch((params_j, ft0_j, cache0_j))
+    pc = TP.PeftConfig(micro_batch=2, seq_len=16, accum=1)
+    tok_t, pos_t = torch.from_numpy(tok), torch.from_numpy(pos)
+    runner = C.ColocatedRunner(tcfg, params, tcfg, params, pc, k_max=6,
+                               use_kernels=use_kernels)
+    assert [runner.unit_step.kind(u) for u in range(6)] == \
+        ["EMBED"] + ["FWD"] * 4 + ["HEAD"]
+    k1, k2 = K1.PLAIN_CALLS, K2.PLAIN_CALLS
+    lg_f, cache_f, ft_f = runner.run_round(6, tok_t, pos_t, _clone(cache0),
+                                           _clone(ft0))
+    assert K1.PLAIN_CALLS == k1
+    assert K2.PLAIN_CALLS - k2 == (5 * 5 if use_kernels else 0)
+    lg_s, cache_s = TMD.decode_step(params, tcfg, tok_t, pos_t,
+                                    _clone(cache0), use_kernels=use_kernels)
+    ft_s = TP.run_units(TP.make_unit_step(tcfg, pc, params,
+                                          use_kernels=use_kernels),
+                        _clone(ft0), 6)
+    assert torch.equal(lg_f, lg_s)
+    for a, b in zip(tree_leaves(cache_f), tree_leaves(cache_s)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(ft_f), tree_leaves(ft_s)):
+        assert (a == b) if isinstance(a, int) else torch.equal(a, b)
+
+    def close(got, expect):
+        expect = np.asarray(expect, np.float32)
+        return np.abs(_f32(got) - expect).max() <= \
+            2e-2 * max(np.abs(expect).max(), 1.0)
+    assert close(lg_f, lg_j)
+    for got, expect in zip(tree_leaves(cache_f), jax.tree.leaves(cache_j)):
+        assert close(got, expect)
+    # the front (embedding and the pre layer) at 2e-2 relative Frobenius;
+    # through the MoE layers, a token whose top-k the two sides' bf16
+    # roundings pick differently moves by an expert's output, so the
+    # stack is held at the bf16 units' 8e-2 (tests/test_torch_training.py)
+    res, res_j = _f32(ft_f["residuals"]), np.asarray(ft_j["residuals"],
+                                                     np.float32)
+    assert np.linalg.norm(res[0] - res_j[0]) <= \
+        2e-2 * np.linalg.norm(res_j[0])
+    assert np.linalg.norm(res - res_j) <= 8e-2 * np.linalg.norm(res_j)
+    assert float(ft_f["loss"]) == pytest.approx(float(ft_j["loss"]),
+                                                rel=1e-2)
+
+
 SSM_TINY = dict(TINY, family="ssm", d_ff=0, ssm_state=16, ssm_headdim=16,
                 ssm_chunk=4)
 
@@ -460,5 +539,24 @@ def test_serve_entry_point_runs_the_windowed_models_on_cpu(arch, colocate):
     m = serve.main(argv)
     assert m.prefills == 3 and m.decode_rounds > 0
     assert K1.PLAIN_CALLS - k1 >= 2 * m.decode_rounds
+    if colocate:
+        assert m.ft_units == 2 * m.decode_rounds
+
+
+@pytest.mark.parametrize("colocate", [False, True])
+def test_serve_entry_point_runs_deepseek_on_cpu(colocate):
+    """`launch/serve.py --arch deepseek-v3-671b --smoke --device cpu
+    --use-kernels [--colocate]`: MLA decode runs no K1; co-located, the
+    units run K2's wrapper on the "pre" and scanned layers' adapters."""
+    k1, k2 = K1.PLAIN_CALLS, K2.PLAIN_CALLS
+    argv = ["--smoke", "--device", "cpu", "--use-kernels", "--arch",
+            "deepseek-v3-671b", "--requests", "3", "--slots", "2",
+            "--s-max", "64"]
+    if colocate:
+        argv += ["--colocate", "--k-max", "2", "--qos-s", "10"]
+    m = serve.main(argv)
+    assert m.prefills == 3 and m.decode_rounds > 0
+    assert K1.PLAIN_CALLS == k1
+    assert (K2.PLAIN_CALLS > k2) == colocate
     if colocate:
         assert m.ft_units == 2 * m.decode_rounds

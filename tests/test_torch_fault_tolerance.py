@@ -304,3 +304,34 @@ def test_straggler_expected_gate_matches_reference():
         assert ours.observe(float(r), e) == ref.observe(float(r), e)
         assert ours.suppress_quantum == ref.suppress_quantum
     assert ours.overruns == ref.overruns > 0
+
+
+def test_deepseek_state_crosses_between_the_packages_bit_for_bit(tmp_path):
+    """deepseek-v3's finetune state (adapters with a "pre" list of the
+    dense layer's q/o/gate/up/down, AdamW's m, v and t) written by the
+    reference restores into the port bit for bit, and the port writes the
+    same files and manifest for it, which the reference restores."""
+    cfg = jconfigs.smoke_config("deepseek-v3-671b")
+    ad = JMD.init_adapters(cfg, jax.random.PRNGKey(3))
+    opt = jopt.adamw_init(ad)
+    grads = jax.tree.map(lambda a: a * 0.5 + 0.25, ad)
+    ad, opt = jopt.adamw_update(jopt.AdamWConfig(lr=1e-2), grads, opt, ad)
+    state = {"adapters": ad, "opt": opt}
+    assert len(ad["pre"]) == 1 and set(ad["pre"][0]) == \
+        {"q", "o", "gate", "up", "down"}
+    JFT.CheckpointManager(tmp_path / "ref").save(4, state)
+    expect = to_torch(jax.tree.map(np.asarray, state))
+    template = tree_map(lambda t: torch.zeros_like(t)
+                        if isinstance(t, torch.Tensor) else 0, expect)
+    out = CheckpointManager(tmp_path / "ref").restore(template)
+    _same_bits(out, expect)
+    CheckpointManager(tmp_path / "port").save(4, out)
+    assert _files(tmp_path / "port" / "step_4") == \
+        _files(tmp_path / "ref" / "step_4")
+    mp, mr = (json.loads((tmp_path / d / "step_4" / "manifest.json")
+                         .read_text()) for d in ("port", "ref"))
+    assert mp["leaves"] == mr["leaves"]
+    assert any(k.startswith("adapters/pre/0/") for k in mp["leaves"])
+    back = JFT.CheckpointManager(tmp_path / "port").restore(state)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(state)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -18,9 +18,13 @@ its captured launches; K1 over a wrapped sliding-window ring at hd 80
 (h2o-danube-1.8b) and 128 against its plain version and the windowed
 oracle, the MoE layer at decode and prefill size run with host
 synchronisation forbidden, and the graphed decode step, rounds and engine
-on the sliding-window and MoE smoke configs too; a checkpoint of card
-tensors saved asynchronously and then written in place, and two steps of
-`launch/train.py` with K2 in each mode. Each skips
+on the sliding-window and MoE smoke configs too; deepseek-v3's smoke config
+(MLA, a dense layer in "pre"): the absorbed MLA decode against its
+unabsorbed form, graphed decode steps, engine tokens and co-located rounds
+against eager ones, its units' K2 launches by kind, and its MoE routing
+(256 experts, top-8, sigmoid) run with host synchronisation forbidden; a
+checkpoint of card tensors saved asynchronously and then written in
+place, and two steps of `launch/train.py` with K2 in each mode. Each skips
 with a reason where no CUDA device is present. This file
 imports no JAX (the machine with the card has none), so run it there with
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -466,6 +470,9 @@ def _served_cache(cfg, params, dev, lengths=(5, 17, 64, 1)):
                              generator=gen)
         logits, one = MD.prefill(params, cfg, {"tokens": toks}, one,
                                  use_kernels=True)
+        for dst, src in zip(cache["pre"], one["pre"]):
+            for name, t in dst.items():
+                t[b] = src[name][0]
         for name, dst in cache["scan"].items():
             dst[:, b] = one["scan"][name][:, 0]
         last.append(logits.argmax(-1).to(torch.int32))
@@ -475,7 +482,7 @@ def _served_cache(cfg, params, dev, lengths=(5, 17, 64, 1)):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b",
-                                  "h2o-danube-1.8b"])
+                                  "h2o-danube-1.8b", "deepseek-v3-671b"])
 def test_graphed_decode_step_equals_eager(arch):
     """The decode step captured as a CUDA graph (kernels on) gives the
     eager step's logits, greedy tokens and cache bit for bit over three
@@ -491,7 +498,7 @@ def test_graphed_decode_step_equals_eager(arch):
     torch.cuda.synchronize()
     _assert_same(cache, saved)
     cache_e = _clone(cache)
-    per_round = 0 if arch == "mamba2-780m" else cfg.num_layers
+    per_round = 0 if arch == "mamba2-780m" or cfg.mla else cfg.num_layers
     for _ in range(3):
         logits_e, _ = MD.decode_step(params, cfg, tok, pos, cache_e,
                                      use_kernels=True)
@@ -594,7 +601,7 @@ def test_replays_count_their_captured_launches():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b",
-                                  "h2o-danube-1.8b"])
+                                  "h2o-danube-1.8b", "deepseek-v3-671b"])
 def test_graphed_engine_tokens_equal_eager_engine(arch):
     """An engine replaying its decode graph (the default on the card) and
     one running eager rounds give the same greedy tokens round by round
@@ -752,3 +759,144 @@ def test_train_entry_point_runs_k2_on_the_card(units, tmp_path):
     assert K2.PLAIN_CALLS == before[1]
     assert out["opt"]["t"] == 2
     assert all(torch.isfinite(t).all() for t in tree_leaves(out["adapters"]))
+
+
+# -------------------------------------------------- MLA (deepseek-v3) ----
+@pytest.mark.gpu
+def test_absorbed_mla_decode_matches_the_unabsorbed_form_on_the_card():
+    """bf16 on the card: the absorbed latent decode against K/V expanded
+    from the same latent cache through W_kv_b (f32), within 2e-2 of the
+    output's largest entry, over slots prefilled to 5-64 tokens; an empty
+    slot (position -1) gives 0 on both."""
+    dev = _card()
+    cfg = smoke_config("deepseek-v3-671b")
+    gen = torch.Generator(dev).manual_seed(0)
+    p = MD.init_params(cfg, 0, device=dev)["pre"][0]["attn"]
+    lengths = (5, 17, 64)
+    cache = A.make_cache(cfg, 4, 96, device=dev)
+    for b, n in enumerate(lengths):
+        x = torch.randn((1, n, cfg.d_model), device=dev, generator=gen
+                        ).to(torch.bfloat16)
+        one = A.make_cache(cfg, 1, 96, device=dev)
+        A.mla_prefill(p, x, torch.arange(n, device=dev)[None], cfg,
+                      cache=one)
+        for name, t in cache.items():
+            t[b] = one[name][0]
+    x = torch.randn((4, 1, cfg.d_model), device=dev, generator=gen
+                    ).to(torch.bfloat16)
+    pos = torch.tensor(lengths + (-1,), dtype=torch.int32, device=dev)
+    expect = A.mla_decode_expanded(p, x, pos, _clone(cache), cfg)
+    got, _ = A.mla_decode(p, x, pos, cache, cfg)
+    torch.cuda.synchronize()
+    scale = expect.float().abs().max()
+    assert (got.float() - expect.float()).abs().max() <= 2e-2 * scale
+    assert not got[3].any() and not expect[3].any()
+
+
+@pytest.mark.gpu
+def test_deepseek_graphed_rounds_equal_eager_rounds():
+    """Co-located rounds on deepseek-v3's smoke config replayed from CUDA
+    graphs equal eager rounds bit for bit over three iterations (EMBED and
+    EMBED_BWD carry the "pre" layer's adapters, EMBED_BWD has a graph);
+    each unit graph's K2 launches are those its kind makes on the plan's
+    layers, all wgmma: EMBED 5, FWD 5, BWD 10, EMBED_BWD 14 (forward,
+    its checkpoint's recompute and dx; the pre layer's q needs no dx);
+    the decode graph launches no K1."""
+    dev = _card()
+    cfg = _graph_cfg("deepseek-v3-671b")
+    params = MD.init_params(cfg, 0, device=dev)
+    cache, tok, pos = _served_cache(cfg, params, dev)
+    pc = TP.PeftConfig(micro_batch=2, seq_len=32, accum=1,
+                       opt=topt.AdamWConfig(lr=1e-3, warmup_steps=1))
+    staged = Prefetcher(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, 32, 2, seed=1)).batches(), pc.n_stage).stacked()
+    ft = TP.init_ft_state(cfg, pc, params, 0, staged)
+    graphed = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=6,
+                                use_kernels=True)
+    eager = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=6,
+                              use_kernels=True, graphs=False)
+    cache_e, ft_e = _clone(cache), _clone(ft)
+    graphed.precompile(cache, ft)
+    torch.cuda.synchronize()
+    _assert_same(cache, cache_e)
+    _assert_same(ft, ft_e)
+    assert graphed._decode.graph.launches == {}
+    unit = graphed.unit_step
+    per = {"EMBED": 5, "FWD": 5, "BWD": 10, "EMBED_BWD": 14}
+    kinds = set()
+    for key, graph in graphed._units.graphs.items():
+        kind = unit.kind(pc.accum * unit.upm if key == "opt" else key)
+        kinds.add(kind)
+        n = per.get(kind, 0)
+        assert graph.launches == ({(K2, "LAUNCHES"): n,
+                                   (K2, "LAUNCHES_WGMMA"): n} if n else {})
+    assert "EMBED_BWD" in kinds
+    ks = [0, 1, 5, 6] * 3
+    assert sum(ks) == 3 * TP.units_per_iteration(cfg, pc.accum)
+    for k in ks:
+        lg_g, _, _ = graphed.run_round(k, tok, pos, cache, ft)
+        lg_e, _, _ = eager.run_round(k, tok, pos, cache_e, ft_e)
+        torch.cuda.synchronize()
+        assert torch.equal(lg_g, lg_e)
+        _assert_same(cache, cache_e)
+        _assert_same(ft, ft_e)
+        tok, pos = lg_e.argmax(-1).to(torch.int32), pos + 1
+    assert ft["iter"] == 3 and np.isfinite(float(ft["last_loss"]))
+    assert any(t.any() for t in tree_leaves(ft["adapters"]["pre"][0]["q"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(8, 1), (2, 512)])
+def test_deepseek_routing_runs_without_host_synchronisation(B, S):
+    """The MoE layer with deepseek-v3's routing (256 experts, top-8,
+    sigmoid, one shared expert; narrow widths) at a decode-size group and
+    a training micro-batch, with host synchronisation forbidden: finite,
+    equal to a second call bit for bit, and no drop at decode (C = 8)."""
+    dev = _card()
+    cfg = dataclasses.replace(smoke_config("deepseek-v3-671b"), d_model=128,
+                              num_experts=256, top_k=8, moe_d_ff=64)
+    p = MOE.moe_init(torch.Generator(dev).manual_seed(0), cfg, 1)
+    p = tree_map(lambda t: t[0], p)
+    x = torch.randn((B, S, cfg.d_model), device=dev,
+                    generator=torch.Generator(dev).manual_seed(1)
+                    ).to(torch.bfloat16)
+    MOE.moe_forward(p, x, cfg, router_type="sigmoid")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = MOE.moe_forward(p, x, cfg, router_type="sigmoid")
+        y2, _ = MOE.moe_forward(p, x, cfg, router_type="sigmoid")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.equal(y, y2)
+    if S == 1:
+        assert float(aux["dropped_frac"]) == 0.0
+
+
+@pytest.mark.gpu
+def test_deepseek_routing_backward_is_bit_reproducible():
+    """The MoE layer's backward at top-8 of 256 (2 x 512 tokens, bf16)
+    twice on the same inputs: the input's and the router's gradients bit
+    for bit (the dispatch's backward gathers a token's slot gradients in
+    a fixed order; a scatter-add's atomics would add its 8 in any
+    order)."""
+    dev = _card()
+    cfg = dataclasses.replace(smoke_config("deepseek-v3-671b"), d_model=128,
+                              num_experts=256, top_k=8, moe_d_ff=64)
+    p = tree_map(lambda t: t[0], MOE.moe_init(
+        torch.Generator(dev).manual_seed(0), cfg, 1))
+    x0 = torch.randn((2, 512, cfg.d_model), device=dev,
+                     generator=torch.Generator(dev).manual_seed(1)
+                     ).to(torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        x = x0.clone().requires_grad_()
+        router = p["router"].clone().requires_grad_()
+        y, aux = MOE.moe_forward(dict(p, router=router), x, cfg,
+                                 router_type="sigmoid")
+        ((y.float() ** 2).sum() + aux["lb_loss"]).backward()
+        grads.append((x.grad, router.grad))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    assert grads[0][0].abs().amax() > 0

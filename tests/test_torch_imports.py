@@ -74,10 +74,11 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         assert out["opt"]["t"] == 1
 
 
-# the sliding-window and MoE configurations run; with an int8 KV cache
-# (ROADMAP.md §1 item 5.7) they still raise
+# the sliding-window, MoE and MLA configurations run; with an int8 KV
+# cache (ROADMAP.md §1 item 5.7) they still raise
 STILL_UNPORTED = {"mixtral-8x7b": dict(kv_quant=True),
-                  "h2o-danube-1.8b": dict(kv_quant=True)}
+                  "h2o-danube-1.8b": dict(kv_quant=True),
+                  "deepseek-v3-671b": dict(kv_quant=True)}
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b",
@@ -91,7 +92,21 @@ def test_unported_families_raise(arch):
         TMD.init_params(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", sorted(STILL_UNPORTED))
+def test_deepseek_runs():
+    """MLA, the leading dense stack and the MTP head (ROADMAP.md §1 item
+    5.3): the smoke config prefills, its dense layer's cache in "pre"."""
+    cfg = tconfigs.smoke_config("deepseek-v3-671b")
+    params = TMD.init_params(cfg, device="cpu")
+    assert "mtp" in params and len(params["pre"]) == cfg.first_dense_layers
+    cache = TMD.init_cache(cfg, 2, 96, device="cpu")
+    logits, _ = TMD.prefill(params, cfg, {"tokens": torch.zeros(
+        (2, 80), dtype=torch.int32)}, cache)
+    assert logits.shape == (2, cfg.vocab_size)
+    assert torch.isfinite(logits.float()).all()
+    assert (cache["pre"][0]["kv_pos"][:, :80] >= 0).all()
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "h2o-danube-1.8b"])
 def test_windowed_and_moe_families_run(arch):
     cfg = tconfigs.smoke_config(arch)
     params = TMD.init_params(cfg, device="cpu")

@@ -18,6 +18,7 @@ import numpy as np  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import lora as JLR  # noqa: E402
+from repro.models import model as JMD  # noqa: E402
 from repro.models import moe as JM  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.interop import to_torch  # noqa: E402
@@ -148,8 +149,72 @@ def test_moe_init_and_lora_targets_match_reference(shared):
 
 
 def test_a_leading_dense_stack_still_raises():
-    """deepseek-v3's dense layers before its MoE stack wait for MLA."""
-    cfg = dataclasses.replace(tconfigs.smoke_config("mixtral-8x7b"),
-                              first_dense_layers=1)
-    with pytest.raises(NotImplementedError, match="5.3"):
-        TMD._plan(cfg)
+    """deepseek-v3's leading dense layers are ported (ROADMAP.md §1 item
+    5.3), so this holds them against the reference instead of expecting
+    `NotImplementedError`: mixtral's smoke config with one dense GQA layer
+    before its MoE stack (window 64; the dense layer's cache is a ring in
+    "pre") prefills 70 tokens and decodes a step like the reference, f32
+    2e-4."""
+    jcfg, tcfg = _cfgs(num_layers=3, first_dense_layers=1)
+    params_j = JMD.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    params_t = to_torch(params_j)
+    assert len(params_t["pre"]) == 1 and "mlp" in params_t["pre"][0]
+    tokens = np.random.default_rng(1).integers(
+        0, jcfg.vocab_size, size=(2, 70)).astype(np.int32)
+    logits_j, cache_j = JMD.prefill(params_j, jcfg,
+                                    {"tokens": jnp.asarray(tokens)},
+                                    JMD.init_cache(jcfg, 2, 96,
+                                                   dtype=jnp.float32))
+    cache_t = TMD.init_cache(tcfg, 2, 96, dtype=torch.float32, device="cpu")
+    assert cache_t["pre"][0]["k"].shape[1] == 64
+    logits_t, _ = TMD.prefill(params_t, tcfg,
+                              {"tokens": torch.from_numpy(tokens)}, cache_t)
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j),
+                               atol=TOL, rtol=TOL)
+    tok = np.array(jnp.argmax(logits_j, axis=-1), np.int32)
+    pos = np.full((2,), 70, np.int32)
+    logits_j, cache_j = JMD.decode_step(params_j, jcfg, jnp.asarray(tok),
+                                        jnp.asarray(pos), cache_j)
+    logits_t, _ = TMD.decode_step(params_t, tcfg, torch.from_numpy(tok),
+                                  torch.from_numpy(pos), cache_t)
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j),
+                               atol=TOL, rtol=TOL)
+    for got, expect in zip(tree_leaves(cache_t), jax.tree.leaves(cache_j)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(expect, np.float32),
+                                   atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("T,dropped", [(8, 0.0), (9, 1 / 9)])
+def test_decode_capacity_at_deepseek_routing(T, dropped):
+    """deepseek-v3's routing (256 experts, top-8, sigmoid, one shared
+    expert) on a decode-size group of T tokens: the capacity C = min(T,
+    max(8, 4 * ceil(T * k / E))) is 8 at 8 slots and at 9. With every
+    token routed to the same 8 experts (a skewed router), 8 tokens fill
+    each one exactly and nothing drops; 9 drop one of 9 assignments each.
+    The skew saturates the sigmoid, so the 8 experts tie at 1.0: the port
+    breaks the tie to the lower index as `jax.lax.top_k` does, which sets
+    the top-1 expert of the load-balance loss and the order in which
+    assignments take capacity. y, the load-balance loss and the dropped
+    share as the reference's, f32 2e-4."""
+    jcfg, tcfg = _cfgs(num_experts=256, top_k=8, num_shared_experts=1)
+    d, E = jcfg.d_model, jcfg.num_experts
+    rng = np.random.default_rng(T)
+    p = jax.tree.map(np.asarray, JM.moe_init(jax.random.PRNGKey(4), jcfg,
+                                             dtype=jnp.float32))
+    v = rng.normal(size=(d,)).astype(np.float32)
+    x = (rng.normal(size=(T, 1, d)) * 0.1 + v).astype(np.float32)
+    p["router"] = p["router"].copy()
+    p["router"][:, :8] = (4.0 * v / np.linalg.norm(v))[:, None] \
+        * np.linspace(1.0, 1.5, 8)[None]
+    y_j, aux_j = JM.moe_forward(p, jnp.asarray(x), jcfg,
+                                router_type="sigmoid")
+    y_t, aux_t = TM.moe_forward(to_torch(p), torch.from_numpy(x), tcfg,
+                                router_type="sigmoid")
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=TOL,
+                               rtol=TOL)
+    for name in ("lb_loss", "dropped_frac"):
+        assert float(aux_t[name]) == pytest.approx(float(aux_j[name]),
+                                                   abs=TOL, rel=TOL)
+    assert float(aux_t["dropped_frac"]) == pytest.approx(dropped, abs=1e-6)
+    assert E == 256 and min(T, max(8, 4 * -(-T * 8 // E))) == 8

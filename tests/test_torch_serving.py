@@ -28,6 +28,7 @@ from repro.serving.request import Request as JRequest  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.interop import to_numpy, to_torch  # noqa: E402
 from repro_torch.kernels import decode_attention as K  # noqa: E402
+from repro_torch.kernels import lora_matmul as K2  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ssd_scan as K3  # noqa: E402
 from repro_torch.models import attention as TA  # noqa: E402
@@ -99,9 +100,15 @@ def test_slot_insert_places_prefill_cache_in_its_slot(tiny):
 
 
 class _JEngineSlotFixed(JEngine):
+    """The stacked caches' insert at [:, slot]; a "pre" layer's cache has
+    no layer axis, and the reference's [slot] is right for it."""
+
     def _insert_slot_cache(self, slot, one_cache):
-        self.cache = jax.tree.map(lambda d, s: d.at[:, slot].set(s[:, 0]),
-                                  self.cache, one_cache)
+        pre = [jax.tree.map(lambda d, s: d.at[slot].set(s[0]), dst, src)
+               for dst, src in zip(self.cache["pre"], one_cache["pre"])]
+        scan = jax.tree.map(lambda d, s: d.at[:, slot].set(s[:, 0]),
+                            self.cache["scan"], one_cache["scan"])
+        self.cache = dict(self.cache, pre=pre, scan=scan)
 
 
 class _JEngineRepaired(_JEngineSlotFixed):
@@ -163,6 +170,57 @@ def test_engine_greedy_tokens_match_reference(request, family, use_kernels):
         (cfg["num_layers"] * eng.metrics.prefills
          if use_kernels and family == "ssm" else 0)
     assert eng.metrics.prefills == 6 and eng.pages.pages_in_use == 0
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_engine_greedy_tokens_deepseek_match_reference(use_kernels):
+    """deepseek-v3's smoke config (an MLA dense layer in "pre", 4 MLA + MoE
+    layers stacked), f32 weights and the engines' bf16 latent caches:
+    the same greedy tokens as the reference engine with its stacked-cache
+    insert and decode position repaired (`_JEngineRepaired`). With the
+    kernels on, MLA decode still runs no K1 (the reference's has no
+    kernel either), and serving has no adapters, so no K2."""
+    jcfg = jconfigs.smoke_config("deepseek-v3-671b")
+    tcfg = tconfigs.smoke_config("deepseek-v3-671b")
+    params_j = JMD.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    expect = _drive(_JEngineRepaired(jcfg, params_j, max_slots=4, s_max=64,
+                                     use_kernels=use_kernels),
+                    _trace(JRequest))
+    before = (K.PLAIN_CALLS, K2.PLAIN_CALLS)
+    eng = TEngine(tcfg, to_torch(params_j), max_slots=4, s_max=64,
+                  use_kernels=use_kernels, device="cpu")
+    assert eng.cache["pre"][0]["c_kv"].shape == (4, 64, tcfg.mla_kv_rank)
+    got = _drive(eng, _trace(TRequest))
+    assert got == expect
+    assert (K.PLAIN_CALLS, K2.PLAIN_CALLS) == before
+    assert eng.metrics.prefills == 6 and eng.pages.pages_in_use == 0
+
+
+def test_reference_slot_insert_is_right_for_pre_caches():
+    """The reference's `dst.at[slot].set(src[0])` writes the layer axis of
+    a stacked cache (ROADMAP.md §3), but a "pre" layer's cache has no
+    layer axis, so there it puts the prefilled cache in its slot: after
+    the same admissions, the reference engine's pre cache equals the
+    port's, while its stacked cache does not."""
+    jcfg = jconfigs.smoke_config("deepseek-v3-671b")
+    tcfg = tconfigs.smoke_config("deepseek-v3-671b")
+    params_j = JMD.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    ref = JEngine(jcfg, params_j, max_slots=3, s_max=32)
+    eng = TEngine(tcfg, to_torch(params_j), max_slots=3, s_max=32,
+                  device="cpu")
+    prompt = np.arange(10, dtype=np.int32) * 7 % 256
+    for rid in range(2):                         # request 1 lands in slot 1
+        for e, R in ((ref, JRequest), (eng, TRequest)):
+            assert e.try_admit(R(rid=rid, arrival=0.0, prompt_len=10,
+                                 max_new_tokens=4), prompt)
+    for name, t in eng.cache["pre"][0].items():
+        np.testing.assert_allclose(
+            np.asarray(to_numpy(t), np.float32),
+            np.asarray(ref.cache["pre"][0][name], np.float32),
+            atol=2e-2, rtol=2e-2)
+    assert torch.all(eng.cache["pre"][0]["kv_pos"][2] == -1)
+    assert not np.array_equal(np.asarray(ref.cache["scan"]["kv_pos"]),
+                              to_numpy(eng.cache["scan"]["kv_pos"]))
 
 
 def _drive_forced(ref, eng, jreqs, treqs):

@@ -174,3 +174,25 @@ def test_serve_with_the_costmodel_predictor_end_to_end():
                     "--k-max", "4"])
     assert m.prefills == 5 and m.tokens_out > 0
     assert m.ft_units > 0
+
+
+@pytest.mark.parametrize("units", [False, True])
+def test_deepseek_trains_through_the_entry_point(units, tmp_path):
+    """`launch/train.py --arch deepseek-v3-671b --smoke --device cpu
+    --use-kernels`, one-shot (checkpointed: the "pre" lists of adapters,
+    m and v restore into their template) and `--layer-units`: 5 adapted
+    projections a layer, each forward, recomputed and its dx, less the
+    first layer's q dx: 74 K2 calls a one-shot step; the units add
+    EMBED's forward of the pre layer's 5: 79."""
+    K2.PLAIN_CALLS = 0
+    argv = ["--arch", "deepseek-v3-671b", "--smoke", "--device", "cpu",
+            "--batch", "2", "--seq", "16", "--steps", "2", "--use-kernels"]
+    out = train.main(argv + (["--layer-units"] if units else
+                             ["--ckpt-dir", str(tmp_path)]))
+    assert K2.PLAIN_CALLS == 2 * (79 if units else 74)
+    assert out["opt"]["t"] == 2 and len(out["adapters"]["pre"]) == 1
+    if not units:
+        back = CheckpointManager(tmp_path).restore(
+            {"adapters": out["adapters"], "opt": out["opt"]})
+        assert _bits_equal(back["adapters"], out["adapters"])
+        assert _bits_equal(back["opt"]["m"]["pre"], out["opt"]["m"]["pre"])
