@@ -151,7 +151,43 @@ Then the llama3 state is freed:
      as phase 7. Phase 5 also holds K2 at every shape phase 14 launches
      it at (MLA q 1536 -> 24576, o 16384 -> 7168, dense 7168 <-> 18432,
      shared expert 7168 <-> 2048, each forward and in the dx form W^T),
-     and the Function's backward at MLA q and the dense down.
+     and the Function's backward at MLA q and the dense down; and at the
+     projections of phases 15-16 (recurrentgemma q/o 2560 -> 2560, k/v
+     2560 -> 256, gate/up 2560 -> 7680, down 7680 -> 2560; phi-3-vision
+     q/k/v/o 3072 -> 3072, gate/up 3072 -> 8192, down 8192 -> 3072), each
+     forward and W^T.
+Then the deepseek objects are freed:
+ 15. recurrentgemma-2b, whole (26 layers: 8 "rra" superblocks of two
+     RG-LRU layers and local attention, then 2 RG-LRU layers in "post";
+     d 2560, 10 heads / 1 KV of hd 256, window 2048, vocab 256000 tied):
+     its parameter count against the configuration's; served from the
+     decode graph at 8 slots and s_max 3072 (rings of 2048), 16 prompts
+     of 1,900-2,600 tokens (seeded) and 32 new tokens, K1's launches held
+     at 8 (its attention layers) per round; 8 prompts of 2,049-2,600
+     tokens admitted and served 8 rounds, then K1 at hd 256 (MQA, g 10)
+     on the first and last attention layer's wrapped rings against its
+     plain version and the windowed oracle, timed beside its byte bound,
+     the plain version and SDPA; the A/B, the solo round beside its
+     read bound and the cost model's, a graphed step bit-equal to the
+     eager one; a 2,100-token prefill and a decode step against the
+     forward; the units by kind (LoRA r 16 on gate/up/down, q/k/v/o and
+     the parallel rg_io; K2 at the plan's count, 324 an iteration, all
+     wgmma), one step of `launch/train.py` (330 K2 launches), and
+     co-located as phase 7 (peak memory printed).
+Then the recurrentgemma objects are freed:
+ 16. phi-3-vision-4.2b, whole (32 layers, d 3072, 32 heads of hd 96,
+     d_ff 8192, vocab 32064), each request with 576 stub patch
+     embeddings ahead of its prompt: served from the decode graph at 8
+     slots and s_max 1152, 16 prompts of 64-500 tokens, K1 on every layer
+     of every round, each slot's last position written held at the
+     patches + prompt + decoded tokens; K1 at hd 96 on the served caches
+     of 8 requests after 8 rounds (first and last layer) against its
+     plain version and the dense oracle, timed beside its bound and
+     SDPA; the A/B, a graphed step bit-equal to the eager one; a
+     500-token prefill after 576 patches and a decode step against the
+     forward; units whose microbatch holds 576 + 1,024 positions by kind
+     (672 K2 launches an iteration), one `launch/train.py` step (669),
+     and a co-located serve as phase 7.
 The second line from the end lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repository
 around it, the script exits nonzero and prints no result.
@@ -351,7 +387,8 @@ def ab_solo_rounds(eng, cfg, label, rounds=20, block=5, profiled=5):
     for r in reqs:
         if not eng.try_admit(r, rng.integers(0, cfg.vocab_size,
                                              size=r.prompt_len,
-                                             dtype=np.int32)):
+                                             dtype=np.int32),
+                             eng._stub_extras(r)):
             raise AssertionError("the A/B's requests were not admitted")
     times = {"eager": [], "graphed": []}
     for mode in ("eager", "graphed", "graphed", "eager") * \
@@ -632,28 +669,46 @@ def grad_agreement(got, expect):
     return worst_rel, worst_frob, where
 
 
+def k2_projections(cfg, kind):
+    """The adapted projections of one layer of `kind` that go through K2:
+    its targets but the parallel `ssm_io`/`rg_io` adapters (plain
+    products); a hybrid superblock's, summed over its sub-layers."""
+    from repro_torch.models import lora as LR
+    from repro_torch.models import model as MD
+    if kind == "hybrid_block":
+        return sum(k2_projections(cfg, MD._sub_kind(ch))
+                   for ch in cfg.hybrid_pattern)
+    return len(set(LR._target_dims(cfg, kind)) - {"ssm_io", "rg_io"})
+
+
 def k2_per_unit(cfg):
     """K2 launches of one unit by kind, from the layer plan: one per
     adapted projection of a layer in FWD, two (forward and dx) in BWD; the
     "pre" layers' in EMBED (forward) and EMBED_BWD (forward, the recompute
     of its per-layer checkpoint and dx, less the first layer's projections
-    whose input depends on no adapter: q/k/v of GQA, q of MLA); none in
-    HEAD and OPT. llama3: FWD 7, BWD 14 (q/k/v/o/gate/up/down); mixtral: 4
-    and 8 (q/k/v/o: the routed experts take no adapters); deepseek-v3 at
-    3 dense + 2 MoE layers: EMBED 15, FWD 5, BWD 10, EMBED_BWD 44."""
-    from repro_torch.models import lora as LR
+    whose input depends on no adapter: q/k/v of GQA, q of MLA); the "post"
+    layers' twice (forward, dx) in HEAD; none in OPT. llama3: FWD 7, BWD
+    14 (q/k/v/o/gate/up/down); mixtral: 4 and 8 (q/k/v/o: the routed
+    experts take no adapters); deepseek-v3 at 3 dense + 2 MoE layers:
+    EMBED 15, FWD 5, BWD 10, EMBED_BWD 44; recurrentgemma-2b: FWD 13 (2 x
+    gate/up/down + 7), BWD 26, HEAD 12 (its 2 post RG-LRU layers)."""
     from repro_torch.models import model as MD
-    pre, scan_kind, _, _ = MD._plan(cfg)
-    n = len(LR._target_dims(cfg, scan_kind))
-    n_pre = sum(len(LR._target_dims(cfg, kind)) for kind in pre)
+    pre, scan_kind, _, post = MD._plan(cfg)
+    n = k2_projections(cfg, scan_kind)
+    n_pre = sum(k2_projections(cfg, kind) for kind in pre)
     return {"FWD": n, "BWD": 2 * n, "EMBED": n_pre,
-            "EMBED_BWD": 3 * n_pre - first_layer_no_dx(cfg) if pre else 0}
+            "EMBED_BWD": 3 * n_pre - first_layer_no_dx(cfg) if pre else 0,
+            "HEAD": 2 * sum(k2_projections(cfg, kind) for kind in post)}
 
 
 def first_layer_no_dx(cfg):
     """The first layer's adapted projections whose input depends on no
-    adapter, so that autograd asks K2 for no dx: the attention inputs."""
+    adapter, so that autograd asks K2 for no dx: the attention inputs
+    (none when the first layer is an RG-LRU block, whose MLP input has
+    passed its rg_io adapter)."""
     from repro_torch.models import lora as LR
+    if cfg.layer_kind(0) != "attn" and cfg.layer_kind(0) != "moe":
+        return 0
     dims = LR._target_dims(cfg, "attn")
     return len(set(dims) & ({"q"} if cfg.mla else {"q", "k", "v"}))
 
@@ -715,8 +770,40 @@ def phase5_k2(cfg):
                      f"{'dx form (W^T)' if trans else 'W'}", "wgmma")
     check_k2_backward(K2, kops, M, d, kv, r)
     return dict(k2_rows["gate/up"], shape=f"M {M} K {d} N {ff} r {r} bf16 "
-                "(gate/up forward)", other_shapes=deepseek_k2_cases(K2, kops,
-                                                                   M))
+                "(gate/up forward)", other_shapes=dict(
+                    deepseek_k2_cases(K2, kops, M),
+                    **model_k2_cases(K2, M, "recurrentgemma-2b"),
+                    **model_k2_cases(K2, M, "phi-3-vision-4.2b")))
+
+
+def model_k2_cases(K2, M, arch):
+    """K2 against its plain version at the adapted projections of `arch`
+    (q/o, k/v, gate/up, down; r 16, scale 2), each forward (W) and in the
+    dx form (W^T), at the bf16 tolerances. Returns the kernels-line rows
+    by projection."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    r, scale = cfg.lora.rank, cfg.lora.alpha / cfg.lora.rank
+    d, ff = cfg.d_model, cfg.d_ff
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    shapes = {}                 # (K, N): the projections of that shape
+    for name, k_, n_ in (("q", d, q), ("k", d, kv), ("v", d, kv),
+                         ("o", q, d), ("gate", d, ff), ("up", d, ff),
+                         ("down", ff, d)):
+        shapes.setdefault((k_, n_), []).append(name)
+    rows = {}
+    for i, ((k_, n_), names) in enumerate(shapes.items()):
+        for trans in (False, True):
+            kk, nn = (n_, k_) if trans else (k_, n_)
+            label = f"{'/'.join(names)}{' dx (W^T)' if trans else ''} " \
+                f"({arch})"
+            x, w, a, b = k2_inputs(M, kk, nn, r, torch.bfloat16, trans,
+                                   seed=61 + 2 * i + trans)
+            row = check_k2(K2, x, w, a, b, scale, label, "wgmma")
+            rows[label] = dict(row, shape=f"M {M} K {kk} N {nn} r {r} bf16"
+                               + (" W^T" if trans else ""))
+            del x, w, a, b
+    return rows
 
 
 def deepseek_k2_cases(K2, kops, M):
@@ -974,7 +1061,8 @@ def serve_colocated(tag, cfg, params, eng, solo_round_s, seq_len):
                                            SyntheticCorpus)
     pc = P.PeftConfig(micro_batch=2, seq_len=seq_len, accum=1)
     staged = Prefetcher(SyntheticCorpus(DataConfig(
-        cfg.vocab_size, seq_len, 2, seed=1)).batches(), pc.n_stage).stacked()
+        cfg.vocab_size, seq_len, 2, seed=1, frontend_tokens=P.front_tokens(
+            cfg), d_model=cfg.d_model)).batches(), pc.n_stage).stacked()
     ft = P.init_ft_state(cfg, pc, params, 1, staged)
     runner = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=6,
                                use_kernels=True)
@@ -1117,7 +1205,8 @@ def phase7_colocated(cfg, params, eng, solo_round_s, seq_len, tag="colo"):
     k1, k2, k2w = counts[("K1", "LAUNCHES")], counts[("K2", "LAUNCHES")], \
         counts[("K2", "LAUNCHES_WGMMA")]
     plain = sum(n for (_, c), n in counts.items() if c == "PLAIN_CALLS")
-    k1_layers = 0 if cfg.mla else cfg.num_layers      # MLA decode: no K1
+    # MLA decode runs no K1; the hybrid's attention layers are 1 in 3
+    k1_layers = 0 if cfg.mla else len(cfg.attn_layer_indices())
     log(f"{tag}: K1 launches={k1} ({k1_layers} x {m.decode_rounds} "
         f"rounds = {k1_layers * m.decode_rounds}) K2 launches={k2} "
         f"(expected from the units run: {k2_expect}; on the wgmma kernel "
@@ -1999,12 +2088,12 @@ def serve_trace(eng, reqs, label):
 
 
 def check_k1_on_ring(K, cache, q, window, label):
-    """K1 over one layer's ring cache (every slot at the last position its
-    ring holds, per kv_pos), read as the model's adapter reads it: against
-    its plain version (`check_k1`, which also times it beside its bound,
-    the plain version and SDPA; and the split lengths scanned) and against
-    the windowed dense oracle. Returns (kernels-line numbers, the
-    oracle's max error)."""
+    """K1 over one layer's ring cache, or a full cache with window 0
+    (every slot at the last position it holds, per kv_pos), read as the
+    model's adapter reads it: against its plain version (`check_k1`,
+    which also times it beside its bound, the plain version and SDPA; and
+    the split lengths scanned) and against the dense oracle with the
+    window. Returns (kernels-line numbers, the oracle's max error)."""
     from repro_torch.models import attention as A
     kc, vc, kv_pos = cache["k"], cache["v"], cache["kv_pos"]
     B, S, KV, hd = kc.shape
@@ -2022,8 +2111,9 @@ def check_k1_on_ring(K, cache, q, window, label):
     torch.cuda.synchronize()
     err = (got - oracle).abs().max().item()
     tol = K1_TOL[q.dtype]
-    log(f"K1 {label} vs the windowed oracle decode_attn_ref(window="
-        f"{window}): max_abs_err={err:.3e} (tol {tol})")
+    log(f"K1 {label} vs the {'windowed' if window else 'dense'} oracle "
+        f"decode_attn_ref(window={window}): max_abs_err={err:.3e} (tol "
+        f"{tol})")
     if not torch.allclose(got, oracle, atol=tol, rtol=tol):
         raise AssertionError(f"K1 disagrees with the windowed oracle: "
                              f"{label}")
@@ -2308,23 +2398,26 @@ def check_moe_layers(params, cfg, seq_len, name="mixtral"):
                                  f"layer {layer}")
 
 
-def moe_units(cfg, params, seq_len, name="mixtral"):
-    """The finetune units on an MoE model at full width (LoRA r 16 on its
-    targets, micro-batch 2 x seq_len, accum 1): one eager iteration (its
-    MoE dropped shares recorded), then two eager and two graphed
-    iterations in turns, synchronized per unit: medians by kind, K2's
-    launches per iteration by route, held at the count the layer plan
-    gives (`k2_per_unit`). Returns (the launches counted in the first
-    iteration, the graphed medians by kind in seconds)."""
+def units_by_kind(cfg, params, seq_len, name="mixtral"):
+    """The finetune units at full width (LoRA r 16 on the model's targets,
+    micro-batch 2 x seq_len tokens after the stub patches where the model
+    has them, accum 1): one eager iteration (an MoE model's dropped
+    shares recorded), then two eager and two graphed iterations in turns,
+    synchronized per unit: medians by kind, K2's launches per iteration
+    by route, held at the count the layer plan gives (`k2_per_unit`).
+    Returns (the launches counted in the first iteration, the graphed
+    medians by kind in seconds)."""
     from repro_torch.core import colocation as C
     from repro_torch.kernels import lora_matmul as K2
     from repro_torch.models import lora as LR
+    from repro_torch.models import model as MD
     from repro_torch.training import peft as P
     from repro_torch.training.data import (DataConfig, Prefetcher,
                                            SyntheticCorpus)
     pc = P.PeftConfig(micro_batch=2, seq_len=seq_len, accum=1)
     staged = Prefetcher(SyntheticCorpus(DataConfig(
-        cfg.vocab_size, pc.seq_len, pc.micro_batch, seed=0)).batches(),
+        cfg.vocab_size, pc.seq_len, pc.micro_batch, seed=0,
+        frontend_tokens=P.front_tokens(cfg), d_model=cfg.d_model)).batches(),
         pc.n_stage).stacked()
     ft = P.init_ft_state(cfg, pc, params, 0, staged)
     unit = P.make_unit_step(cfg, pc, params, use_kernels=True)
@@ -2333,9 +2426,12 @@ def moe_units(cfg, params, seq_len, name="mixtral"):
     n_k2 = k2_per_iteration(cfg, unit, total)
     kinds = collections.Counter(unit.kind(i) for i in range(total))
     plan = " + ".join(f"{kinds[kind]} {kind} x {per[kind]}"
-                      for kind in ("EMBED", "FWD", "BWD", "EMBED_BWD")
-                      if per.get(kind))
-    targets = "/".join(LR._target_dims(cfg, unit.scan_kind))
+                      for kind in ("EMBED", "FWD", "HEAD", "BWD",
+                                   "EMBED_BWD") if per.get(kind))
+    kinds_ = [MD._sub_kind(ch) for ch in cfg.hybrid_pattern] \
+        if unit.scan_kind == "hybrid_block" else [unit.scan_kind]
+    targets = "/".join(dict.fromkeys(t for kind in kinds_
+                                     for t in LR._target_dims(cfg, kind)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
@@ -2345,7 +2441,9 @@ def moe_units(cfg, params, seq_len, name="mixtral"):
         ft, cold = timed_unit_run(unit, unit, ft, total)
     iter_s = time.perf_counter() - t0
     counts = kernel_counts()
-    log(f"{name} train: micro_batch 2 x seq {seq_len}, accum 1, LoRA r="
+    front = P.front_tokens(cfg)
+    log(f"{name} train: micro_batch 2 x seq {seq_len}"
+        f"{f' after {front} patches' if front else ''}, accum 1, LoRA r="
         f"{cfg.lora.rank} on {targets}; the first iteration of {total} units "
         f"in {iter_s:.3f} s (synchronized per unit), iter={ft['iter']}, "
         f"last_loss={float(ft['last_loss']):.4f} (ln V = "
@@ -2356,8 +2454,10 @@ def moe_units(cfg, params, seq_len, name="mixtral"):
         f"WMMA {counts[('K2', 'LAUNCHES_WMMA')]}, FMA "
         f"{counts[('K2', 'LAUNCHES_F32')]}, plain calls "
         f"{counts[('K2', 'PLAIN_CALLS')]}")
-    dropped_line(f"{name} train (FWD units and the BWD units' recomputed "
-                 f"forward, 2 x {seq_len} tokens, a group per row)", shares)
+    if cfg.moe:
+        dropped_line(f"{name} train (FWD units and the BWD units' "
+                     f"recomputed forward, 2 x {seq_len} tokens, a group "
+                     f"per row)", shares)
     if counts[("K2", "LAUNCHES")] != n_k2 or \
             counts[("K2", "LAUNCHES_WGMMA")] != n_k2 or \
             counts[("K2", "PLAIN_CALLS")]:
@@ -2459,7 +2559,7 @@ def phase12_mixtral(dev, layers=16):
     pos = (eng.cache["scan"]["kv_pos"][0] >= 0).sum(dim=-1).to(torch.int32)
     graphed_decode_bits("mixtral serve", params, cfg, eng.cache,
                         torch.tensor(eng.last_token, device=dev), pos)
-    train_launches, _ = moe_units(cfg, params, seq_len=1024)
+    train_launches, _ = units_by_kind(cfg, params, seq_len=1024)
     gc.collect()
     torch.cuda.empty_cache()
     k1_colo, k2_colo, colo = phase7_colocated(cfg, params, eng, m.round_s,
@@ -2793,11 +2893,10 @@ def k2_per_step(cfg):
     """K2 launches of a one-shot train step with remat: each adapted
     projection of each layer forward, recomputed and its dx, less the
     first layer's projections whose input depends on no adapter."""
-    from repro_torch.models import lora as LR
     from repro_torch.models import model as MD
-    pre, scan_kind, n, _ = MD._plan(cfg)
-    per_layer = [len(LR._target_dims(cfg, kind))
-                 for kind in pre + [scan_kind] * n]
+    pre, scan_kind, n, post = MD._plan(cfg)
+    per_layer = [k2_projections(cfg, kind)
+                 for kind in pre + [scan_kind] * n + post]
     return 3 * sum(per_layer) - first_layer_no_dx(cfg)
 
 
@@ -2813,8 +2912,9 @@ def one_shot_step(cfg, params, seq_len, label):
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     dev = params["embed"].device
     batch = {k: torch.as_tensor(v, device=dev) for k, v in next(
-        SyntheticCorpus(DataConfig(cfg.vocab_size, seq_len, 2, seed=2)
-                        ).batches()).items()}
+        SyntheticCorpus(DataConfig(cfg.vocab_size, seq_len, 2, seed=2,
+                                   frontend_tokens=P.front_tokens(cfg),
+                                   d_model=cfg.d_model)).batches()).items()}
     adapters = MD.init_adapters(cfg, 1, device=dev)
     step = P.make_train_step(cfg, AdamWConfig(), use_kernels=True,
                              remat=True)
@@ -2829,13 +2929,18 @@ def one_shot_step(cfg, params, seq_len, label):
     c = kernel_counts()
     expect = k2_per_step(cfg)
     vals = {k: float(v) for k, v in m.items()}
+    terms = f" + {MD.MOE_AUX_COEF} x aux {vals['aux']:.4f} / " \
+        f"{cfg.num_layers}" if cfg.moe else ""
+    if "mtp_ce" in vals:
+        terms += f" + {MD.MTP_COEF} x mtp_ce {vals['mtp_ce']:.4f}"
+    front = P.front_tokens(cfg)
     log(f"{label}: one make_train_step step (remat, K2) on 2 x {seq_len} "
-        f"tokens in {secs:.3f} s: loss {vals['loss']:.4f} = ce "
-        f"{vals['ce']:.4f} + {MD.MOE_AUX_COEF} x aux {vals['aux']:.4f} / "
-        f"{cfg.num_layers} + {MD.MTP_COEF} x mtp_ce {vals['mtp_ce']:.4f} "
-        f"(ln V = {float(np.log(cfg.vocab_size)):.4f}); K2 launches="
+        f"tokens{f' after {front} patches' if front else ''} in "
+        f"{secs:.3f} s: loss {vals['loss']:.4f} = ce {vals['ce']:.4f}"
+        f"{terms} (ln V = {float(np.log(cfg.vocab_size)):.4f}); K2 launches="
         f"{c[('K2', 'LAUNCHES')]} (expected {expect}: 3 x the adapted "
-        f"projections less the first layer's q dx), wgmma "
+        f"projections less the first layer's "
+        f"{first_layer_no_dx(cfg)} with no dx), wgmma "
         f"{c[('K2', 'LAUNCHES_WGMMA')]}, plain calls "
         f"{c[('K2', 'PLAIN_CALLS')]}; max_memory_allocated_gb="
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
@@ -2942,7 +3047,7 @@ def phase14_deepseek(dev, layers=5):
     profile_prefill("deepseek-v3", params, cfg, 300, seed=9)
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, _ = moe_units(cfg, params, seq_len=1024,
+    train_launches, _ = units_by_kind(cfg, params, seq_len=1024,
                                   name="deepseek-v3")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2957,6 +3062,372 @@ def phase14_deepseek(dev, layers=5):
                 k2={"train_iteration_deepseek": train_launches,
                     "train_oneshot_deepseek": oneshot,
                     "colocated_serve_deepseek": k2_colo})
+
+
+# the parameter trees' sizes: ModelConfig.param_count() and the final norm
+# (d_model), which param_count leaves out
+RECURRENTGEMMA_PARAMS = 2_673_297_920
+PHI3_VISION_PARAMS = 3_821_079_552
+
+
+def decode_vs_forward(params, cfg, n, label):
+    """A prefill of n tokens (after the stub patches where the model has
+    them) and one decode step, through the kernels, against `forward`
+    over the n + 1 tokens at token n (its hidden row, projected as the
+    decode's head projects it). Held at layers x
+    DECODE_LOGIT_TOL_PER_LAYER of the largest |logit|, phase 14's rule."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MD
+    from repro_torch.training import peft as P
+    dev = params["embed"].device
+    gen = torch.Generator(dev).manual_seed(15)
+    toks = torch.randint(0, cfg.vocab_size, (1, n + 1), device=dev,
+                         generator=gen)
+    front = P.front_tokens(cfg)
+    batch = {"tokens": toks[:, :n]}
+    if front:
+        batch["frontend"] = torch.randn((1, front, cfg.d_model), device=dev,
+                                        generator=gen)
+    with torch.no_grad():
+        cache = MD.init_cache(cfg, 1, front + n + 1, device=dev)
+        MD.prefill(params, cfg, batch, cache, use_kernels=True)
+        got, _ = MD.decode_step(
+            params, cfg, toks[:, n].to(torch.int32),
+            torch.tensor([front + n], dtype=torch.int32, device=dev), cache,
+            use_kernels=True)
+        hidden, _ = MD.forward(params, cfg, dict(batch, tokens=toks),
+                               return_hidden=True)
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        expect = L.lm_logits(hidden[:, n:n + 1], table)[:, 0]
+    torch.cuda.synchronize()
+    scale = expect.float().abs().max().item()
+    err = (got.float() - expect.float()).abs().max().item()
+    tol = cfg.num_layers * DECODE_LOGIT_TOL_PER_LAYER
+    same = bool((got.argmax(-1) == expect.argmax(-1)).all())
+    log(f"{label}: prefill of {n} tokens"
+        f"{f' after {front} patches' if front else ''} then a decode step "
+        f"(kernels on) vs forward at token {n}: max |dlogit| {err:.4f} = "
+        f"{err / scale:.3e} of max |logit| {scale:.3f} (tol "
+        f"{cfg.num_layers} layers x {DECODE_LOGIT_TOL_PER_LAYER} = "
+        f"{tol:.3g}), same greedy token {same}")
+    if err > tol * scale or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: prefill + decode disagrees with the "
+                             "full forward")
+
+
+def train_main_step(arch, seq_len, label):
+    """One step of `launch/train.py`'s `main` (one-shot mode, K2 on every
+    adapted projection) on the full-width `arch`, micro-batch 2 x
+    seq_len: its K2 launches held at `k2_per_step`, all wgmma, and its
+    loss finite. Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.training import peft as P
+    cfg = get_config(arch)
+    expect = k2_per_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    out = train.main(["--arch", arch, "--steps", "1", "--batch", "2",
+                      "--seq", str(seq_len), "--use-kernels"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = kernel_counts()
+    front = P.front_tokens(cfg)
+    log(f"{label}: launch/train.py main, 1 one-shot step on 2 x {seq_len} "
+        f"tokens{f' after {front} patches' if front else ''} (init "
+        f"included) in {secs:.3f} s: K2 launches="
+        f"{c[('K2', 'LAUNCHES')]} (expected {expect}: 3 x the adapted "
+        f"projections less the first layer's {first_layer_no_dx(cfg)} with "
+        f"no dx), wgmma {c[('K2', 'LAUNCHES_WGMMA')]}, plain calls "
+        f"{c[('K2', 'PLAIN_CALLS')]}; max_memory_allocated_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    if c[("K2", "LAUNCHES")] != expect or \
+            c[("K2", "LAUNCHES_WGMMA")] != expect or c[("K2", "PLAIN_CALLS")]:
+        raise AssertionError(f"{label}: the train step did not run every "
+                             "adapted projection through K2's wgmma kernel")
+    if out["opt"]["t"] != 1:
+        raise AssertionError(f"{label}: the train step did not finish")
+    del out
+    return c[("K2", "LAUNCHES")]
+
+
+def served_round_bound(label, cfg, params, eng, ab, ctx):
+    """The graphed solo round beside the least time of its weight and
+    cache reads (the whole cache, an upper count) and the cost model's
+    solo round (committed constants, bs 8, mean context `ctx`)."""
+    from repro_torch.core.costmodel import CostModel, InstanceSpec
+    read = tree_bytes(params) + tree_bytes(eng.cache)
+    if not cfg.tie_embeddings:          # the input embedding: 8 rows read
+        read -= tree_bytes(params["embed"])
+    bound_ms = read / HBM_BYTES_PER_S * 1e3
+    model_ms = 1e3 * CostModel(cfg, InstanceSpec()).decode_solo(
+        8, ctx, noisy=False)
+    log(f"{label}: graphed solo round at 8 slots median "
+        f"{1e3 * ab['graphed'][0]:.3f} ms, p90 {1e3 * ab['graphed'][1]:.3f}"
+        f" ms; bound from weight and cache reads {read / 1e9:.3f} GB / "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {bound_ms:.3f} ms (ratio "
+        f"{1e3 * ab['graphed'][0] / bound_ms:.3f}); the cost model's solo "
+        f"round ({InstanceSpec().chip.name}, bs 8, mean context {ctx:.0f}) "
+        f"{model_ms:.3f} ms")
+
+
+def phase15_recurrentgemma(dev):
+    """recurrentgemma-2b, whole (26 layers: 8 "rra" superblocks and 2
+    trailing RG-LRU layers), served on local-attention rings of 2048 that
+    wrap (16 prompts of 1,900-2,600 tokens, 32 new tokens each), K1 on
+    every decode of its 8 attention layers; K1 at hd 256 (MQA, g 10) on
+    wrapped rings after 8 served rounds against its plain version and the
+    windowed oracle; the A/B and a graphed step bit-equal to the eager
+    one; prefill + decode against the forward; the units by kind (K2 at
+    the plan's count), one `launch/train.py` step, and co-located serving
+    with the fitted predictor. Returns the kernels-line numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as K
+    from repro_torch.models import model as MD
+    from repro_torch.serving.engine import EngineMetrics, ServingEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.tree import tree_leaves
+    # ------------------------------- 15. recurrentgemma-2b, whole --
+    cfg = get_config("recurrentgemma-2b")
+    t0 = time.perf_counter()
+    params = MD.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _, _, n_blocks, post = MD._plan(cfg)
+    count = sum(t.numel() for t in tree_leaves(params))
+    rg_layer = sum(t.numel() for t in tree_leaves(params["post"][0]))
+    attn_layer = sum(t.numel() for t in tree_leaves(params["scan"]["sub2"])
+                     ) // n_blocks
+    log(f"recurrentgemma-2b: {n_blocks} superblocks of {cfg.hybrid_pattern!r}"
+        f" and {len(post)} post layers ({cfg.num_layers}), d {cfg.d_model}, "
+        f"RG-LRU width {cfg.rglru_width or cfg.d_model}, local attention "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV of {cfg.head_dim}, "
+        f"window {cfg.local_window}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} (tied); parameters {count:,} (param_count "
+        f"{cfg.param_count():,} + the final norm): RG-LRU layer "
+        f"{rg_layer:,}, attention layer {attn_layer:,}, embedding "
+        f"{params['embed'].numel():,}; weights "
+        f"{tree_bytes(params) / 1e9:.3f} GB bf16, random (seed 0), init "
+        f"{init_s:.2f} s")
+    if count != cfg.param_count() + cfg.d_model or \
+            count != RECURRENTGEMMA_PARAMS:
+        raise AssertionError("recurrentgemma-2b: the parameter count is not "
+                             "the configuration's")
+    eng = ServingEngine(cfg, params, max_slots=8, s_max=3072,
+                        use_kernels=True, device=dev)
+    rings = eng.cache["scan"]["sub2"]
+    ring = rings["k"].shape[2]
+    if ring != cfg.local_window or not eng.graphs:
+        raise AssertionError("recurrentgemma: the cache is not a graphed "
+                             "ring of the window")
+    captured(f"recurrentgemma decode step (8 slots, rings of {ring})",
+             eng.precompile)
+    eng.run_trace([Request(rid=-1, arrival=0.0, prompt_len=64,
+                           max_new_tokens=2)])       # warm-up, not counted
+    eng.metrics = EngineMetrics()
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, arrival=i * 0.01,
+                    prompt_len=int(rng.integers(1900, 2601)),
+                    max_new_tokens=32) for i in range(16)]
+    log(f"recurrentgemma serve: {len(reqs)} requests, prompts "
+        f"{[r.prompt_len for r in reqs]}, 32 new tokens each; "
+        f"{sum(r.prompt_len > ring for r in reqs)} prefills keep the last "
+        f"{ring} of more tokens (the split write), "
+        f"{sum(r.prompt_len <= ring < r.prompt_len + 31 for r in reqs)} "
+        f"rings wrap during decode; the RG-LRU state is "
+        f"{tree_bytes(eng.cache) - tree_bytes(rings):,} bytes for 8 slots")
+    m, counts = serve_trace(eng, reqs, "recurrentgemma serve")
+    n_attn = len(cfg.attn_layer_indices())
+    k1, plain = counts[("K1", "LAUNCHES")], counts[("K1", "PLAIN_CALLS")]
+    log(f"recurrentgemma serve: K1 launches={k1} ({n_attn} attention layers"
+        f" x {m.decode_rounds} rounds = {n_attn * m.decode_rounds}), plain "
+        f"calls={plain}")
+    if k1 != n_attn * m.decode_rounds or plain:
+        raise AssertionError("recurrentgemma decode did not run its "
+                             "attention layers through K1")
+    if int(rings["kv_pos"].amax()) < ring:
+        raise AssertionError("recurrentgemma: no ring wrapped")
+    # K1 at hd 256 (one KV head for 10 query heads) on rings past the
+    # window: 8 prompts admitted, 8 rounds served, then the first and the
+    # last attention layer's rings
+    late = [Request(rid=1000 + i, arrival=0.0, prompt_len=n,
+                    max_new_tokens=32)
+            for i, n in enumerate((2049, 2100, 2200, 2300, 2400, 2500, 2550,
+                                   2600))]
+    for r in late:
+        if not eng.try_admit(r, rng.integers(0, cfg.vocab_size,
+                                             size=r.prompt_len,
+                                             dtype=np.int32)):
+            raise AssertionError("recurrentgemma: the K1 check's requests "
+                                 "were not admitted")
+    for _ in range(8):
+        eng.decode_round()
+    q = torch.randn((8, cfg.num_heads, cfg.head_dim), device=dev,
+                    generator=torch.Generator(dev).manual_seed(8)
+                    ).to(torch.bfloat16)
+    checked = [check_k1_on_ring(
+        K, {n: t[layer] for n, t in rings.items()}, q, cfg.local_window,
+        f"recurrentgemma hd 256 MQA g 10 (attention layer {layer}'s rings, "
+        f"prompts of 2049-2600 tokens served 8 decode rounds)")
+        for layer in (0, n_blocks - 1)]
+    while eng.active_requests():
+        eng.decode_round()
+    ab = ab_solo_rounds(eng, cfg, "recurrentgemma serve")
+    ctx = float((rings["kv_pos"][0] >= 0).sum(dim=-1).float().mean())
+    served_round_bound("recurrentgemma serve", cfg, params, eng, ab, ctx)
+    pos = rings["kv_pos"][0].amax(dim=1) + 1
+    graphed_decode_bits("recurrentgemma serve", params, cfg, eng.cache,
+                        torch.tensor(eng.last_token, device=dev),
+                        pos.to(torch.int32))
+    decode_vs_forward(params, cfg, 2100, "recurrentgemma")
+    profile_prefill("recurrentgemma", params, cfg, 2048, seed=9)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches, _ = units_by_kind(cfg, params, seq_len=1024,
+                                      name="recurrentgemma")
+    gc.collect()
+    torch.cuda.empty_cache()
+    oneshot = train_main_step("recurrentgemma-2b", 1024, "recurrentgemma "
+                              "train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_colo, k2_colo, _ = phase7_colocated(cfg, params, eng, m.round_s,
+                                           seq_len=1024,
+                                           tag="colo recurrentgemma")
+    return dict(k1={"serve_recurrentgemma": k1,
+                    "colocated_serve_recurrentgemma": k1_colo},
+                hd256=dict(checked[0][0], shape="B 8, H 10, KV 1, hd 256, "
+                           "bf16, rings of 2048 as 32 pages of 64",
+                           served_rings_oracle_max_abs_err=max(
+                               c[1] for c in checked)),
+                k2={"train_iteration_recurrentgemma": train_launches,
+                    "train_oneshot_recurrentgemma": oneshot,
+                    "colocated_serve_recurrentgemma": k2_colo})
+
+
+def phase16_phi3_vision(dev):
+    """phi-3-vision-4.2b, whole (32 layers, d 3072, 32 heads of hd 96),
+    each request with 576 stub patch embeddings ahead of its prompt: 16
+    requests served from the decode graph at s_max 1152, K1 on every
+    layer of every round, decode positions after the patches; K1 at hd 96
+    on the served caches against its plain version and SDPA; the A/B and
+    a graphed step bit-equal to the eager one; prefill + decode against
+    the forward; units whose microbatch holds 576 + 1,024 positions by
+    kind, one `launch/train.py` step, and a co-located serve. Returns the
+    kernels-line numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as K
+    from repro_torch.models import model as MD
+    from repro_torch.serving.engine import EngineMetrics, ServingEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.tree import tree_leaves
+    # ------------------------------- 16. phi-3-vision-4.2b, whole --
+    cfg = get_config("phi-3-vision-4.2b")
+    F = cfg.frontend_tokens
+    t0 = time.perf_counter()
+    params = MD.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    count = sum(t.numel() for t in tree_leaves(params))
+    log(f"phi-3-vision-4.2b: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {F} stub patches per "
+        f"request; parameters {count:,} (param_count "
+        f"{cfg.param_count():,} + the final norm), weights "
+        f"{tree_bytes(params) / 1e9:.3f} GB bf16, random (seed 0), init "
+        f"{init_s:.2f} s")
+    if count != cfg.param_count() + cfg.d_model or \
+            count != PHI3_VISION_PARAMS:
+        raise AssertionError("phi-3-vision: the parameter count is not the "
+                             "configuration's")
+    eng = ServingEngine(cfg, params, max_slots=8, s_max=1152,
+                        use_kernels=True, device=dev)
+    if not eng.graphs:
+        raise AssertionError("the engine does not replay a CUDA graph")
+    captured("phi-3-vision decode step (8 slots, s_max 1152)",
+             eng.precompile)
+    eng.run_trace([Request(rid=-1, arrival=0.0, prompt_len=64,
+                           max_new_tokens=2)])       # warm-up, not counted
+    eng.metrics = EngineMetrics()
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, arrival=i * 0.01,
+                    prompt_len=int(rng.integers(64, 501)), max_new_tokens=32)
+            for i in range(16)]
+    log(f"phi-3-vision serve: {len(reqs)} requests of {F} patches and "
+        f"prompts {[r.prompt_len for r in reqs]}, 32 new tokens each; the "
+        f"KV cache {tree_bytes(eng.cache) / 1e9:.3f} GB")
+    m, counts = serve_trace(eng, reqs, "phi-3-vision serve")
+    k1, plain = counts[("K1", "LAUNCHES")], counts[("K1", "PLAIN_CALLS")]
+    log(f"phi-3-vision serve: K1 launches={k1} ({cfg.num_layers} x "
+        f"{m.decode_rounds} rounds = {cfg.num_layers * m.decode_rounds}), "
+        f"plain calls={plain}")
+    if k1 != cfg.num_layers * m.decode_rounds or plain:
+        raise AssertionError("phi-3-vision decode did not run through K1")
+    # each slot's last request wrote its patches at 0..F-1, its prompt
+    # after them and its decoded tokens after the prompt
+    last = {r.slot: r for r in reqs}
+    kv_pos = eng.cache["scan"]["kv_pos"][0]
+    want = {s: F + r.prompt_len + r.max_new_tokens - 2
+            for s, r in last.items()}
+    got = {s: int(kv_pos[s].amax()) for s in last}
+    log(f"phi-3-vision serve: each slot's last position written (the last "
+        f"request's F + prompt + 30 decoded): {got}, expected {want}")
+    if got != want or int(eng.front.min()) != F:
+        raise AssertionError("phi-3-vision: decode positions do not follow "
+                             "the patches")
+    late = [Request(rid=1000 + i, arrival=0.0, prompt_len=n,
+                    max_new_tokens=32)
+            for i, n in enumerate((1, 64, 100, 200, 300, 400, 450, 500))]
+    for r in late:
+        if not eng.try_admit(r, rng.integers(0, cfg.vocab_size,
+                                             size=r.prompt_len,
+                                             dtype=np.int32),
+                             eng._stub_extras(r)):
+            raise AssertionError("phi-3-vision: the K1 check's requests "
+                                 "were not admitted")
+    for _ in range(8):
+        eng.decode_round()
+    q = torch.randn((8, cfg.num_heads, cfg.head_dim), device=dev,
+                    generator=torch.Generator(dev).manual_seed(8)
+                    ).to(torch.bfloat16)
+    checked = [check_k1_on_ring(
+        K, {n: t[layer] for n, t in eng.cache["scan"].items()}, q, 0,
+        f"phi-3-vision hd 96 (layer {layer}'s caches of 18 pages, {F} "
+        f"patches + prompts of 1-500 tokens served 8 decode rounds)")
+        for layer in (0, cfg.num_layers - 1)]
+    while eng.active_requests():
+        eng.decode_round()
+    ab = ab_solo_rounds(eng, cfg, "phi-3-vision serve")
+    ctx = float((kv_pos >= 0).sum(dim=-1).float().mean())
+    served_round_bound("phi-3-vision serve", cfg, params, eng, ab, ctx)
+    graphed_decode_bits("phi-3-vision serve", params, cfg, eng.cache,
+                        torch.tensor(eng.last_token, device=dev),
+                        (kv_pos.amax(dim=1) + 1).to(torch.int32))
+    decode_vs_forward(params, cfg, 500, "phi-3-vision")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches, _ = units_by_kind(cfg, params, seq_len=1024,
+                                      name="phi-3-vision")
+    gc.collect()
+    torch.cuda.empty_cache()
+    oneshot = train_main_step("phi-3-vision-4.2b", 1024, "phi-3-vision "
+                              "train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_colo, k2_colo, _ = phase7_colocated(cfg, params, eng, m.round_s,
+                                           seq_len=1024,
+                                           tag="colo phi-3-vision")
+    return dict(k1={"serve_phi3_vision": k1,
+                    "colocated_serve_phi3_vision": k1_colo},
+                hd96=dict(checked[0][0], shape="B 8, H 32, KV 32, hd 96, "
+                          "bf16, caches of 1152 as 18 pages of 64",
+                          served_caches_oracle_max_abs_err=max(
+                              c[1] for c in checked)),
+                k2={"train_iteration_phi3_vision": train_launches,
+                    "train_oneshot_phi3_vision": oneshot,
+                    "colocated_serve_phi3_vision": k2_colo})
 
 
 def main() -> int:
@@ -3047,15 +3518,33 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     deepseek = phase14_deepseek(dev)
-    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s; whole run "
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    hybrid = phase15_recurrentgemma(dev)
+    log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    vision = phase16_phi3_vision(dev)
+    log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     llama["k1"]["launches_by_path"].update(serve_danube=danube["launches"],
                                            **mixtral["k1"],
-                                           **deepseek["k1"])
+                                           **deepseek["k1"], **hybrid["k1"],
+                                           **vision["k1"])
     llama["k1"]["hd80"] = {k: v for k, v in danube.items()
                            if k != "launches"}
+    llama["k1"]["hd256"] = hybrid["hd256"]
+    llama["k1"]["hd96"] = vision["hd96"]
     llama["k2"]["launches_by_path"].update(mixtral["k2"], **train,
-                                           **deepseek["k2"])
+                                           **deepseek["k2"], **hybrid["k2"],
+                                           **vision["k2"])
 
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": [

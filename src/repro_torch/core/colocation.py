@@ -42,6 +42,7 @@ from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import DecodeGraph
 from repro_torch.training import peft as P
+from repro_torch.tree import tree_leaves
 
 
 class GraphedUnits:
@@ -200,7 +201,7 @@ def profile_rounds(runner: ColocatedRunner, cache, ft_state, *,
     solo = {1.0: [(bs, ctx, s)]} for `fit_solo`, colo = [(q_inf, q_ft, bs,
     ctx, s)] for `fit_colo`. The units run for real, so the finetune state
     advances."""
-    some = next(iter(cache["scan"].values()))   # (layers, slots, ...)
+    some = tree_leaves(cache["scan"])[0]        # (layers, slots, ...)
     slots, dev = some.shape[1], some.device
     tokens = torch.zeros((slots,), dtype=torch.int32, device=dev)
     solo: Dict[float, List[Tuple[int, int, float]]] = {1.0: []}
@@ -246,7 +247,7 @@ def run_colocated_trace(eng, runner: ColocatedRunner, sched: QoSScheduler,
             eng.decode_round()
             return
         bs = len(active)
-        ctx = sum(r.context_len for r in active) / bs
+        ctx = sum(eng.context(r.slot) for r in active) / bs
         k = sched.pick(bs, ctx, ft_ready=True,
                        ft_units_available=runner.k_max).k
 

@@ -28,6 +28,10 @@ are printed); on the CPU they run eagerly.
       --smoke --device cpu --use-kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
       --smoke --device cpu --colocate --use-kernels
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+      --smoke --device cpu --colocate --use-kernels
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi-3-vision-4.2b \
+      --smoke --device cpu --colocate --use-kernels
 """
 
 from __future__ import annotations
@@ -115,7 +119,9 @@ def main(argv=None):
         params_ft = MD.init_params(cfg_ft, 1, device=device)
     pc = P.PeftConfig(micro_batch=2, seq_len=32, accum=1)
     pf = Prefetcher(SyntheticCorpus(DataConfig(
-        cfg_ft.vocab_size, pc.seq_len, pc.micro_batch)).batches(), pc.n_stage)
+        cfg_ft.vocab_size, pc.seq_len, pc.micro_batch,
+        frontend_tokens=P.front_tokens(cfg_ft), d_model=cfg_ft.d_model)
+    ).batches(), pc.n_stage)
     ft_state = P.init_ft_state(cfg_ft, pc, params_ft, 2, pf.stacked())
     runner = ColocatedRunner(cfg, params, cfg_ft, params_ft, pc,
                              k_max=args.k_max, use_kernels=args.use_kernels)

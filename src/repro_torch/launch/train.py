@@ -33,6 +33,10 @@ mode, the unit engine's state with `--layer-units`.
       --batch 2 --seq 1024 --steps 6 --use-kernels --layer-units
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b \\
       --smoke --device cpu --steps 2 --use-kernels [--layer-units]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
+      --smoke --device cpu --steps 2 --use-kernels [--layer-units]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch phi-3-vision-4.2b \\
+      --smoke --device cpu --steps 2 --use-kernels [--layer-units]
 """
 
 from __future__ import annotations
@@ -90,7 +94,7 @@ def main(argv=None):
 
     dcfg = DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, batch_size=args.batch,
-        frontend_tokens=cfg.frontend_tokens if cfg.frontend == "vision" else 0,
+        frontend_tokens=P.front_tokens(cfg),
         enc_frames=args.seq // 2 if cfg.enc_layers else 0,
         d_model=cfg.d_model)
     data = SyntheticCorpus(dcfg).batches()

@@ -1,15 +1,15 @@
 """Model assembly: the dense decoder (full or sliding-window attention),
 the Mixture-of-Experts decoder (with deepseek-v3's MLA attention, leading
-dense layers and multi-token-prediction loss) and the SSM family,
-serving and training paths.
+dense layers and multi-token-prediction loss), the SSM family, the hybrid
+RG-LRU family and the vision-stub frontend, serving and training paths.
 
-Port of the dense, MoE and SSM halves of `repro/models/model.py`. Params
-are a dict of tensors under the JAX pytree's names:
+Port of `repro/models/model.py` but its encoder-decoder half. Params are
+a dict of tensors under the JAX pytree's names:
   {"embed": (V, d), "final_norm": (d,), ["unembed": (V, d)],
    "pre": [layer, ...],      # unrolled leading layers, no layer axis
    "scan": {"ln1", "attn": {"wq", "wk", "wv", "wo", ["q_norm", "k_norm"]},
             "ln2", "mlp": {"gate", "up", "down"}},   # leading axis = layer
-   "post": [],
+   "post": [layer, ...],     # unrolled trailing layers, no layer axis
    ["mtp": {"norm_h", "norm_e", "proj", "layer"}]}
 or, for an MoE stack (`mixtral-8x7b`), "moe": {"router", "gate", "up",
 "down", ["shared"]} in place of "mlp" (`models/moe.py`); with MLA
@@ -18,29 +18,41 @@ or, for an MoE stack (`mixtral-8x7b`), "moe": {"router", "gate", "up",
 dense layers of kind "attn" come first in "pre", and "mtp" holds the
 multi-token-prediction head. For the SSM family (`mamba2-780m`),
    "scan": {"ln1", "ssm": {"in_proj", "conv_w", "conv_b", "A_log",
-                           "dt_bias", "D", "gate_norm", "out_proj"}},
-and caches mirror it: {"pre": [cache, ...], "scan": {"k", "v", "kv_pos"},
-"post": []} with k/v (n_layers, B, S, KV, hd), S = s_max or, for
-sliding-window attention, a ring of min(s_max, window) slots
-(`attention.make_cache`); MLA's latent {"c_kv", "k_rope", "kv_pos"}; or
-{"h": (n_layers, B, nh, hd, ds) f32, "conv": (n_layers, B, w-1, dinner
-+ 2 ds) bf16} for the SSM family.
+                           "dt_bias", "D", "gate_norm", "out_proj"}}.
+The hybrid family (`recurrentgemma-2b`) stacks superblocks of its
+`hybrid_pattern` ("rra": two RG-LRU layers, then local attention):
+"scan" is {"sub0", "sub1", "sub2"}, an "rglru" layer being {"ln1", "rg":
+{"in_y", "in_x", "conv_w", "conv_b", "gate_a", "gate_x", "lamb",
+"out_proj"}, "ln2", "mlp"} (`models/rglru.py`), and the layers left over
+when the depth is not a multiple of the pattern go unstacked in "post"
+(26 = 8 x 3 + 2 RG-LRU layers).
+Caches mirror it: {"pre": [cache, ...], "scan": {"k", "v", "kv_pos"},
+"post": [cache, ...]} with k/v (n_layers, B, S, KV, hd), S = s_max or,
+for sliding-window and the hybrid's local attention, a ring of
+min(s_max, window) slots (`attention.make_cache`); MLA's latent {"c_kv",
+"k_rope", "kv_pos"}; {"h": (n_layers, B, nh, hd, ds) f32, "conv":
+(n_layers, B, w-1, dinner + 2 ds) bf16} for the SSM family; {"h": (B,
+w) f32, "conv": (B, 3, w) bf16} per RG-LRU layer.
 LoRA adapters mirror it too: {"pre": [{name: {"a": (d_in, r), "b": ...}},
-...], "scan": {name: {"a": (n_layers, d_in, r), "b": ...}}, "post": []}
-with f32 leaves (`models/lora.py`).
+...], "scan": {name: {"a": (n_layers, d_in, r), "b": ...}}, "post": [...]}
+with f32 leaves (`models/lora.py`), nested under "sub{i}" for the hybrid.
+
+A vision-stub model (`phi-3-vision-4.2b`) takes `batch["frontend"]`, (B,
+F, d) patch embeddings, ahead of its tokens (`_embed_inputs`): prefill
+writes the cache at positions 0..F+P-1, and `forward` and `loss_fn` drop
+the first F rows of the output.
 
 The reference's `jax.lax.scan` over the stacked params becomes a Python loop
 that indexes layer `i` and writes that layer's cache in place: the caller's
 cache tensors are updated, and the returned cache is the same dict. The
-"pre" layers run first, in prefill, decode and forward alike, as in the
-reference.
+"pre" layers run first and the "post" layers last, in prefill, decode and
+forward alike, as in the reference.
 Families the port does not run yet raise `NotImplementedError` naming the
 ROADMAP item that ports them. An MoE layer's load-balance loss is
 `apply_layer`'s third result; `forward` sums it over the layers and
 `loss_fn` adds MOE_AUX_COEF times its mean, and MTP_COEF times the MTP
 head's cross-entropy, as the reference does.
 """
-
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -54,8 +66,10 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import lora as LR
 from repro_torch.models import moe as M
+from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
 
@@ -64,11 +78,9 @@ MTP_COEF = 0.3
 
 # (predicate, what, ROADMAP item) for configurations not ported yet
 _UNPORTED = (
-    (lambda c: c.family == "hybrid", "the hybrid RG-LRU family", "5.4"),
-    (lambda c: c.enc_layers or c.cross_attention or
-     c.family in ("encdec", "audio"), "the encoder-decoder family", "5.5"),
-    (lambda c: c.frontend != "none" or c.family == "vlm",
-     "the vision-stub frontend", "5.6"),
+    (lambda c: c.enc_layers or c.cross_attention or c.frontend == "audio"
+     or c.family in ("encdec", "audio"), "the encoder-decoder family",
+     "5.5"),
     (lambda c: c.kv_quant, "int8 KV caches (kv_quant)", "5.7"),
 )
 
@@ -84,6 +96,12 @@ def _require_ported(cfg: ModelConfig) -> None:
 def _plan(cfg: ModelConfig):
     """(pre_kinds, scan_kind, n_scan, post_kinds) — how depth is laid out."""
     _require_ported(cfg)
+    if cfg.family == "hybrid" and cfg.hybrid_pattern:
+        plen = len(cfg.hybrid_pattern)
+        n_blocks = cfg.num_layers // plen
+        rem = cfg.num_layers - n_blocks * plen
+        return [], "hybrid_block", n_blocks, \
+            [_sub_kind(cfg.hybrid_pattern[i]) for i in range(rem)]
     if cfg.family == "ssm":
         return [], "ssm", cfg.num_layers, []
     if cfg.moe:
@@ -92,9 +110,16 @@ def _plan(cfg: ModelConfig):
     return [], "attn", cfg.num_layers, []
 
 
+def _sub_kind(ch: str) -> str:
+    """The layer kind of a hybrid pattern's letter ("r" or "a")."""
+    return "rglru" if ch == "r" else "attn"
+
+
 def _layer_window(cfg: ModelConfig) -> int:
-    """The attention window of the attention layers (0: full attention;
-    the hybrid family's local window comes with its port, item 5.4)."""
+    """The attention window of the attention layers: the hybrid family's
+    local window, the SWA window, or 0 (full attention)."""
+    if cfg.family == "hybrid":
+        return cfg.local_window
     return cfg.window if cfg.attn_type == "swa" else 0
 
 
@@ -105,7 +130,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, dtype=torch.bfloat16,
     torch generator on the device (not the reference's numbers). Each
     leaf is drawn one layer at a time, an MoE layer one expert at a
     time: the f32 draw never exceeds one layer's leaf."""
-    pre_kinds, scan_kind, n, _ = _plan(cfg)
+    pre_kinds, scan_kind, n, post_kinds = _plan(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -139,21 +164,36 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, dtype=torch.bfloat16,
         if kind == "moe":
             layer["moe"] = M.moe_init(gen, cfg, n_layers, dtype=dtype)
         else:
-            layer["mlp"] = {"gate": normal(lead + (d, ff), d ** -0.5),
-                            "up": normal(lead + (d, ff), d ** -0.5),
-                            "down": normal(lead + (ff, d), ff ** -0.5)}
+            layer["mlp"] = mlp(lead)
         return layer
 
-    pre = [attn_layer(kind) for kind in pre_kinds]
+    def mlp(lead):
+        return {"gate": normal(lead + (d, ff), d ** -0.5),
+                "up": normal(lead + (d, ff), d ** -0.5),
+                "down": normal(lead + (ff, d), ff ** -0.5)}
+
+    def layer(kind, n_layers=0):
+        """Layer weights of any kind but "ssm" (stacked when n_layers)."""
+        lead = (n_layers,) if n_layers else ()
+        if kind == "hybrid_block":
+            return {f"sub{i}": layer(_sub_kind(ch), n_layers)
+                    for i, ch in enumerate(cfg.hybrid_pattern)}
+        if kind == "rglru":
+            return {"ln1": ones(*lead, d),
+                    "rg": RG.rglru_init(gen, cfg, n_layers, dtype=dtype),
+                    "ln2": ones(*lead, d), "mlp": mlp(lead)}
+        return attn_layer(kind, n_layers)
+
+    pre = [layer(kind) for kind in pre_kinds]
     if scan_kind == "ssm":                  # the embedding first, as before
         embed = normal((V, d), d ** -0.5)
         scan = {"ln1": ones(n, d), "ssm": SSM.ssm_init(gen, cfg, n,
                                                        dtype=dtype)}
     else:
-        scan = attn_layer(scan_kind, n)
+        scan = layer(scan_kind, n)
         embed = normal((V, d), d ** -0.5)
     p: Params = {"embed": embed, "final_norm": ones(d), "pre": pre,
-                 "scan": scan, "post": []}
+                 "scan": scan, "post": [layer(kind) for kind in post_kinds]}
     if not cfg.tie_embeddings:
         p["unembed"] = normal((V, d), d ** -0.5)
     if cfg.mtp:
@@ -166,15 +206,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, dtype=torch.bfloat16,
 def init_adapters(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """LoRA adapters mirroring pre/scan/post (f32 leaves, B = 0), A drawn
     from a torch generator on the device (not the reference's numbers)."""
-    pre_kinds, scan_kind, n, _ = _plan(cfg)
+    pre_kinds, scan_kind, n, post_kinds = _plan(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return {"pre": [LR.init_layer_adapters(gen, cfg, kind, device=dev)
-                    for kind in pre_kinds],
-            "scan": LR.init_layer_adapters(gen, cfg, scan_kind, n,
-                                           device=dev),
-            "post": []}
+
+    def layer(kind, n_layers=0):
+        if kind == "hybrid_block":
+            return {f"sub{i}": layer(_sub_kind(ch), n_layers)
+                    for i, ch in enumerate(cfg.hybrid_pattern)}
+        return LR.init_layer_adapters(gen, cfg, kind, n_layers, device=dev)
+    return {"pre": [layer(kind) for kind in pre_kinds],
+            "scan": layer(scan_kind, n),
+            "post": [layer(kind) for kind in post_kinds]}
 
 
 # ==================================================================== cache
@@ -183,18 +227,23 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     """Per-layer caches: one per "pre" layer, and the scanned layers'
     stacked on a leading axis. The SSM family's state is f32 `h` and bf16
     `conv` whatever `dtype` says (`make_ssm_state`)."""
-    pre_kinds, scan_kind, n, _ = _plan(cfg)
+    pre_kinds, scan_kind, n, post_kinds = _plan(cfg)
     dev = resolve_device(device)
 
-    def one():
+    def one(kind):
+        if kind == "ssm":
+            return SSM.make_ssm_state(cfg, batch, device=dev)
+        if kind == "rglru":
+            return RG.make_rglru_state(cfg, batch, device=dev)
+        if kind == "hybrid_block":
+            return {f"sub{i}": one(_sub_kind(ch))
+                    for i, ch in enumerate(cfg.hybrid_pattern)}
         return A.make_cache(cfg, batch, s_max, dtype, dev,
                             window=_layer_window(cfg))
-    stacked = SSM.make_ssm_state(cfg, batch, device=dev) \
-        if scan_kind == "ssm" else one()
-    return {"pre": [one() for _ in pre_kinds],
-            "scan": {k: v[None].repeat_interleave(n, dim=0)
-                     for k, v in stacked.items()},
-            "post": []}
+    return {"pre": [one(kind) for kind in pre_kinds],
+            "scan": tree_map(lambda v: v[None].repeat_interleave(n, dim=0),
+                             one(scan_kind)),
+            "post": [one(kind) for kind in post_kinds]}
 
 
 def _layer(tree, i: int):
@@ -206,10 +255,12 @@ def _layer(tree, i: int):
 
 def _layers(cfg: ModelConfig, tree):
     """[(kind, layer)] in depth order of a params, cache or adapter tree:
-    the "pre" layers, then the scanned stack's layers as views."""
-    pre_kinds, scan_kind, n, _ = _plan(cfg)
+    the "pre" layers, the scanned stack's layers as views, then the
+    "post" layers."""
+    pre_kinds, scan_kind, n, post_kinds = _plan(cfg)
     return list(zip(pre_kinds, tree["pre"])) + \
-        [(scan_kind, _layer(tree["scan"], i)) for i in range(n)]
+        [(scan_kind, _layer(tree["scan"], i)) for i in range(n)] + \
+        list(zip(post_kinds, tree["post"]))
 
 
 # ============================================================ layer apply
@@ -218,9 +269,13 @@ def apply_layer(lp: Params, x, positions, cfg: ModelConfig, kind: str, *,
                 cache=None, lora=None, scale: float = 0.0,
                 use_kernels: bool = False):
     """One layer of kind "attn" (dense decoder), "moe" (attention and a
-    Mixture-of-Experts FFN) or "ssm" (Mamba2 mixer). Returns (x, cache,
-    aux): a given cache is updated in place; aux is the MoE layer's
-    load-balance loss (an f32 scalar), 0.0 for the other kinds.
+    Mixture-of-Experts FFN), "ssm" (Mamba2 mixer), "rglru" (the Griffin
+    recurrent block with its parallel `rg_io` adapter, then the GLU MLP)
+    or "hybrid_block" (the hybrid's superblock: one sub-layer per letter
+    of `hybrid_pattern`, params, cache and adapters under "sub{i}").
+    Returns (x, cache, aux): a given cache is updated in place; aux is
+    the MoE layer's load-balance loss (an f32 scalar), 0.0 for the other
+    kinds.
 
     lora: pairs form {name: (A, B)} of this layer's adapters. use_kernels
     routes GQA decode attention through the paged decode kernel (windowed
@@ -229,6 +284,29 @@ def apply_layer(lp: Params, x, positions, cfg: ModelConfig, kind: str, *,
     and the SSM prefill's scan through the SSD scan kernel. The SSM's
     "full" mode (training) keeps the plain, differentiable scan: the
     kernel has no backward."""
+    if kind == "hybrid_block":
+        for i, ch in enumerate(cfg.hybrid_pattern):
+            x, _, _ = apply_layer(
+                lp[f"sub{i}"], x, positions, cfg, _sub_kind(ch), mode=mode,
+                cache=None if cache is None else cache[f"sub{i}"],
+                lora=None if lora is None else lora.get(f"sub{i}"),
+                scale=scale, use_kernels=use_kernels)
+        return x, cache, 0.0
+    if kind == "rglru":
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if mode == "decode":
+            out, new = RG.rglru_decode(lp["rg"], h, cache, cfg)
+        else:
+            out, new = RG.rglru_forward(lp["rg"], h, cfg, state=cache)
+        if cache is not None:
+            for name, t in cache.items():
+                t.copy_(new[name])
+        x = x + _parallel_lora(h, out, lora, "rg_io", scale)
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + L.glu_mlp(h, lp["mlp"]["gate"], lp["mlp"]["up"],
+                             lp["mlp"]["down"], act=cfg.act, lora=lora,
+                             lora_scale=scale, use_kernels=use_kernels), \
+            cache, 0.0
     if kind == "ssm":
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         if mode == "decode":
@@ -241,10 +319,6 @@ def apply_layer(lp: Params, x, positions, cfg: ModelConfig, kind: str, *,
             for name, t in cache.items():
                 t.copy_(new[name])
         return x + _parallel_lora(h, out, lora, "ssm_io", scale), cache, 0.0
-    if kind not in ("attn", "moe"):
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
-                                  "(ROADMAP.md §1, modules still to port, "
-                                  "item 5)")
     window = _layer_window(cfg)
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.mla:                 # no decode kernel: the reference's has none
@@ -324,16 +398,23 @@ def decode_step(params, cfg: ModelConfig, tokens, positions, cache, *,
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict):
-    """Token embedding. Returns (x, positions, text_offset); the port runs
-    no frontend yet (`_plan` raises for one), so the offset is 0."""
+    """Token (+ frontend) embedding. Returns (x, positions, text_offset):
+    a vision stub's (B, F, d) patch embeddings (`batch["frontend"]`, cast
+    to the embedding's dtype) come ahead of the tokens, positions run
+    over both, and text_offset is F (0 without a frontend)."""
     tokens = batch["tokens"]
     x = L.embed(tokens.long(), params["embed"])
+    offset = 0
+    if cfg.frontend != "none" and batch.get("frontend") is not None:
+        fe = batch["frontend"].to(x.dtype)
+        x = torch.cat([fe, x], dim=1)
+        offset = fe.shape[1]
     B, S = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-    return x, positions, 0
+    return x, positions, offset
 
 
 def forward(params, cfg: ModelConfig, batch: Dict, *, adapters=None,
@@ -344,7 +425,7 @@ def forward(params, cfg: ModelConfig, batch: Dict, *, adapters=None,
     logits (loss_fn fuses the projection into the chunked CE). remat
     recomputes each layer in the backward pass (`torch.utils.checkpoint`,
     the reference's `jax.checkpoint` of the scan body; the port's takes
-    the "pre" layers too, which changes memory, not values)."""
+    the "pre" and "post" layers too, which changes memory, not values)."""
     x, positions, offset = _embed_inputs(params, cfg, batch)
     scale = LR.lora_scale(cfg)
     layers = _layers(cfg, params)

@@ -9,9 +9,10 @@ same `np.random.default_rng(seed)`, so a seeded trace is the same on both
 sides. Greedy argmax is taken on the device, with one host copy per round.
 `use_kernels` reaches prefill as well as decode (the reference engine
 passes it to decode only), so an SSM model's admissions run the SSD scan
-kernel. The slot insert copies every per-layer cache leaf, KV, MLA latent
-or SSM state: a "pre" layer's cache (no layer axis) at [slot], the stacked
-caches at [:, slot].
+kernel. The slot insert copies every per-layer cache leaf, KV, MLA latent,
+SSM or RG-LRU state: a "pre" or "post" layer's cache (no layer axis) at
+[slot], the stacked caches (the hybrid's nested "sub{i}" ones too) at
+[:, slot].
 A decode round writes the last token at position context_len - 1, so the
 first decode token goes to position prompt_len; the reference writes it at
 context_len and never writes prompt_len, which leaves a stale slot that
@@ -20,6 +21,12 @@ A sliding-window model's cache is a ring of min(s_max, window) slots
 (`models/attention.py`) while positions still run to s_max - 1; the one-slot
 prefill cache is the same ring, and the page accounting counts the ring's
 tokens, not the context's (the reference's counts the context).
+A vision-stub model's requests carry F patch embeddings (`_stub_extras`,
+drawn from the engine's rng after the prompt, as in the reference), which
+the prefill writes at positions 0..F-1 ahead of the prompt. The port's
+decode positions, page admission and finishing test count them; the
+reference's leave them out, so its first decode writes at position
+prompt_len + 1, inside the patches and prompt (ROADMAP.md §3).
 
 On the card the decode step is a CUDA graph (`DecodeGraph`), captured at
 the first round or by `precompile` (the reference jits it at its first
@@ -47,6 +54,7 @@ from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.kv_cache import PageTableManager, spec_for
 from repro_torch.serving.request import Phase, Request
+from repro_torch.tree import tree_leaves
 
 
 @dataclasses.dataclass
@@ -74,7 +82,7 @@ class DecodeGraph:
     def __init__(self, params, cfg: ModelConfig, cache, *,
                  use_kernels: bool = False, tokens=None, positions=None,
                  pool=None):
-        some = next(iter(cache["scan"].values()))
+        some = tree_leaves(cache["scan"])[0]      # (layers, slots, ...)
         slots, dev = some.shape[1], some.device
         self.tokens = torch.zeros((slots,), dtype=torch.int32, device=dev) \
             if tokens is None else tokens
@@ -143,6 +151,8 @@ class ServingEngine:
                                       max_slots, pages_per_seq)
         self.slots: List[Optional[Request]] = [None] * max_slots
         self.last_token = np.zeros((max_slots,), np.int32)
+        # positions ahead of each slot's prompt: its stub patches
+        self.front = np.zeros((max_slots,), np.int32)
         # decode rounds replay a CUDA graph unless this is False (the
         # default on the card; the CPU has no graphs, and True raises there)
         self.graphs = G.resolve(graphs, self.device)
@@ -167,17 +177,28 @@ class ServingEngine:
                                    positions=self.positions)
 
     # ------------------------------------------------------------- admit --
-    def try_admit(self, req: Request, prompt_tokens: np.ndarray) -> bool:
+    def try_admit(self, req: Request, prompt_tokens: np.ndarray,
+                  extras: Optional[Dict] = None) -> bool:
+        """Prefill `prompt_tokens` into a free slot. extras: per-request
+        inputs beside the tokens, such as a vision stub's "frontend" (F,
+        d) patch embeddings, which take positions 0..F-1 ahead of the
+        prompt: the page admission counts them, and so do the decode
+        positions and the finishing test."""
+        front = 0 if not extras or "frontend" not in extras \
+            else len(extras["frontend"])
         slot = next((i for i, s in enumerate(self.slots) if s is None), None)
         if slot is None or not self.pages.admit(
-                slot, min(req.prompt_len, self.cache_len)):
+                slot, min(front + req.prompt_len, self.cache_len)):
             self.metrics.rejected_admissions += 1
             return False
         t0 = time.perf_counter()
         req.slot, req.phase = slot, Phase.PREFILLING
         self.slots[slot] = req
+        self.front[slot] = front
         batch = {"tokens": torch.as_tensor(prompt_tokens[None, :],
                                            device=self.device)}
+        for k, v in (extras or {}).items():
+            batch[k] = torch.as_tensor(v[None], device=self.device)
         one_cache = MD.init_cache(self.cfg, 1, self.s_max, device=self.device)
         logits, one_cache = MD.prefill(self.params, self.cfg, batch,
                                        one_cache,
@@ -193,13 +214,22 @@ class ServingEngine:
         return True
 
     def _insert_slot_cache(self, slot: int, one_cache) -> None:
-        for dst, src in zip(self.cache["pre"], one_cache["pre"]):
-            for name, t in dst.items():          # no layer axis
-                t[slot] = src[name][0]
-        for name, dst in self.cache["scan"].items():
-            dst[:, slot] = one_cache["scan"][name][:, 0]
+        """Copy the one-slot cache into `slot`: "pre" and "post" layers'
+        leaves (no layer axis) at [slot], the stacked ones at [:, slot]."""
+        for part in ("pre", "post"):
+            for dst, src in zip(tree_leaves(self.cache[part]),
+                                tree_leaves(one_cache[part])):
+                dst[slot] = src[0]
+        for dst, src in zip(tree_leaves(self.cache["scan"]),
+                            tree_leaves(one_cache["scan"])):
+            dst[:, slot] = src[:, 0]
 
     # ------------------------------------------------------------- rounds --
+    def context(self, slot: int) -> int:
+        """Positions the slot's request holds: its stub patches, prompt
+        and generated tokens."""
+        return int(self.front[slot]) + self.slots[slot].context_len
+
     def active_requests(self) -> List[Request]:
         return [r for r in self.slots if r is not None and
                 r.phase == Phase.DECODING]
@@ -222,7 +252,7 @@ class ServingEngine:
         positions = self._positions_host.numpy()
         positions[:] = 0
         for i, r in active:
-            positions[i] = r.context_len - 1  # position of the token fed
+            positions[i] = self.context(i) - 1  # position of the token fed
         np.copyto(self._tokens_host.numpy(), self.last_token)
         self.tokens.copy_(self._tokens_host, non_blocking=True)
         self.positions.copy_(self._positions_host, non_blocking=True)
@@ -256,7 +286,7 @@ class ServingEngine:
             self.metrics.tokens_out += 1
             out[r.rid] = int(next_tokens[i])
             if r.generated >= r.max_new_tokens or \
-                    r.context_len >= self.s_max - 1:
+                    self.context(i) >= self.s_max - 1:
                 r.phase = Phase.DONE
                 self.pages.release(r.slot)
                 self.slots[i] = None
@@ -278,7 +308,7 @@ class ServingEngine:
                 r = pending[qi]
                 toks = self.rng.integers(0, vocab, size=r.prompt_len,
                                          dtype=np.int32)
-                if self.try_admit(r, toks):
+                if self.try_admit(r, toks, self._stub_extras(r)):
                     qi += 1
                 else:
                     break
@@ -287,3 +317,12 @@ class ServingEngine:
             (round_fn or self.decode_round)()
             rounds += 1
         return self.metrics
+
+    def _stub_extras(self, req: Request) -> Optional[Dict]:
+        """A vision stub's patch embeddings for `req`, drawn from the
+        engine's rng after its prompt, as the reference draws them."""
+        cfg = self.cfg
+        if cfg.frontend == "vision" and cfg.frontend_tokens:
+            return {"frontend": self.rng.normal(
+                size=(cfg.frontend_tokens, cfg.d_model)).astype(np.float32)}
+        return None

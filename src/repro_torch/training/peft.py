@@ -13,7 +13,20 @@ EMBED runs the embedding and the model's "pre" layers (deepseek-v3's
 leading dense layers) with their adapters; EMBED_BWD recomputes them with
 the adapters as leaves and adds their gradients, as the reference's
 `front` does (`repro/training/peft.py:122-138`, `:240-255`). A model
-without "pre" layers does no tensor work in EMBED_BWD.
+without "pre" layers does no tensor work in EMBED_BWD. A FWD or BWD unit
+runs one element of the scanned stack: a layer, or the hybrid family's
+whole superblock (two RG-LRU layers and a local-attention layer). HEAD
+runs the "post" layers (the hybrid's trailing RG-LRU layers) with their
+adapters, then the loss, and adds their adapter grads to
+`grads["post"]`; OPT steps them with the rest.
+
+A vision-stub model trains on F patch embeddings ahead of its S tokens
+(the staged ring's "frontend", which EMBED stages beside the tokens): `x`
+and the residuals hold F + S rows, the layers see positions 0..F+S-1,
+and HEAD drops the first F rows before the loss, so the units' loss is
+`loss_fn`'s CE. The reference sizes `x` and the residuals S, so its EMBED
+cannot store the front, and its HEAD would pair F + S - 1 rows with S - 1
+labels (ROADMAP.md §3).
 
 FWD units run without autograd and save each layer's input as a bf16
 residual. BWD units recompute their layer from that residual and call
@@ -41,7 +54,10 @@ recomputed forward and the dx of each projection) on a dense layer with
 all seven targets adapted; EMBED and EMBED_BWD launch it for the "pre"
 layers' projections: EMBED once each, EMBED_BWD three times (forward,
 the recompute of its per-layer checkpoint, dx) less the dx where a
-projection's input depends on no adapter (the first layer's q).
+projection's input depends on no adapter (the first layer's q); HEAD
+twice (forward, dx) for each adapted projection of the "post" layers.
+An RG-LRU layer's gate/up/down go through it, its parallel `rg_io`
+adapter does not (a plain product, as `ssm_io`).
 
 The units train on the CE alone: an MoE layer's aux loss and the MTP term
 that `loss_fn` adds are dropped, as the reference's units drop them (its
@@ -110,13 +126,27 @@ def units_per_iteration(cfg: ModelConfig, accum: int) -> int:
     return accum * n_units_per_mb(cfg) + 1
 
 
+def front_tokens(cfg: ModelConfig) -> int:
+    """Rows ahead of the tokens in the units' activations: a vision stub's
+    patches (0 without a frontend)."""
+    return cfg.frontend_tokens if cfg.frontend == "vision" else 0
+
+
 def init_ft_state(cfg: ModelConfig, pc: PeftConfig, params, seed: int,
                   staged: Dict[str, np.ndarray]) -> Dict[str, Any]:
-    """staged: {"tokens": (n_stage, B, S), "labels": ..., "mask": ...} from
-    `data.Prefetcher.stacked()`, copied to the params' device."""
+    """staged: {"tokens": (n_stage, B, S), "labels": ..., "mask": ...,
+    ["frontend": (n_stage, B, F, d)]} from `data.Prefetcher.stacked()`,
+    copied to the params' device. `x` and the residuals hold F + S rows
+    (the reference sizes them S, and its EMBED fails on a frontend)."""
     _, _, n_scan, _ = MD._plan(cfg)
     dev = params["embed"].device
-    B, S, d = pc.micro_batch, pc.seq_len, cfg.d_model
+    B, d = pc.micro_batch, cfg.d_model
+    F = front_tokens(cfg)
+    if F and np.shape(staged.get("frontend"))[2:3] != (F,):
+        raise ValueError(f"{cfg.name} trains on {F} stub patches per "
+                         "sample: stage a 'frontend' of them "
+                         "(DataConfig.frontend_tokens)")
+    S = F + pc.seq_len
     adapters = MD.init_adapters(cfg, seed, device=dev)
     return {
         "adapters": adapters,
@@ -159,16 +189,18 @@ class UnitEngine:
 
     def __init__(self, cfg: ModelConfig, pc: PeftConfig, params, *,
                  use_kernels: bool = False):
-        self.pre_kinds, self.scan_kind, self.n_scan, _ = MD._plan(cfg)
+        self.pre_kinds, self.scan_kind, self.n_scan, self.post_kinds = \
+            MD._plan(cfg)
         self.cfg, self.pc, self.params = cfg, pc, params
         self.use_kernels = use_kernels
         self.scale = LR.lora_scale(cfg)
         self.upm = n_units_per_mb(cfg)
         self.total_units = units_per_iteration(cfg, pc.accum)
         dev = params["embed"].device
-        self.positions = torch.arange(pc.seq_len, dtype=torch.int32,
-                                      device=dev
-                                      ).expand(pc.micro_batch, pc.seq_len)
+        self.front = front_tokens(cfg)
+        S = self.front + pc.seq_len
+        self.positions = torch.arange(S, dtype=torch.int32,
+                                      device=dev).expand(pc.micro_batch, S)
         self.batch: Dict[str, torch.Tensor] = {}
         self.hp = torch.zeros((4,), dtype=torch.float32, device=dev)
 
@@ -201,9 +233,11 @@ class UnitEngine:
         if kind in ("EMBED", "EMBED_BWD") and self.has_work(unit_idx):
             # EMBED_BWD recomputes the front on its microbatch's tokens
             # (the same ring entry: `data_idx` moves after it)
-            self._stage(state, ["tokens"])
+            self._stage(state, [k for k in ("tokens", "frontend")
+                                if k in state["data"]])
         elif kind == "HEAD":
-            self._stage(state, [k for k in state["data"] if k != "tokens"])
+            self._stage(state, [k for k in state["data"]
+                                if k not in ("tokens", "frontend")])
         elif kind == "OPT":
             hp = torch.from_numpy(adamw_hparams(self.pc.opt,
                                                 state["opt"]["t"] + 1))
@@ -232,8 +266,9 @@ class UnitEngine:
         """The embedding and the "pre" layers (pairs-form adapters). remat
         recomputes each layer in the backward pass, so that autograd holds
         one layer's activations at a time (`torch.utils.checkpoint`)."""
-        x, _, _ = MD._embed_inputs(self.params, self.cfg,
-                                   {"tokens": self.batch["tokens"]})
+        x, _, _ = MD._embed_inputs(self.params, self.cfg, {
+            "tokens": self.batch["tokens"],
+            "frontend": self.batch.get("frontend")})
         for kind, lp, ad in zip(self.pre_kinds, self.params["pre"],
                                 pre_ads):
             def layer(h, lp=lp, kind=kind, ad=ad):
@@ -285,8 +320,10 @@ class UnitEngine:
         state["residuals"][i + 1] = y
 
     def _head_loss(self, x):
+        """The CE of the microbatch's text rows (the first `front` rows
+        are patches; the reference's HEAD pairs them with labels)."""
         cfg, params, batch = self.cfg, self.params, self.batch
-        h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        h = L.rms_norm(x[:, self.front:], params["final_norm"], cfg.norm_eps)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
         mask = batch.get("mask")
         return L.chunked_softmax_xent(
@@ -294,28 +331,41 @@ class UnitEngine:
             None if mask is None else mask[:, 1:])
 
     def _head(self, state, _u):
+        """The "post" layers (the hybrid's trailing RG-LRU layers) with
+        their adapters as leaves, then the loss; dx and the post adapters'
+        grads by one backward pass (the reference's `jax.vjp` over both,
+        `repro/training/peft.py:190-202`)."""
         x = state["x"].detach().requires_grad_()
+        ads = tree_map(lambda t: t.detach().requires_grad_(),
+                       state["adapters"]["post"])
+        leaves = tree_leaves(ads)
         with torch.enable_grad():
-            loss = self._head_loss(x)
-            (dx,) = torch.autograd.grad(loss, [x])
-        state["x"].copy_(dx)
+            h = x
+            for kind, lp, ad in zip(self.post_kinds, self.params["post"],
+                                    ads):
+                h, _, _ = MD.apply_layer(
+                    lp, h, self.positions, self.cfg, kind, mode="full",
+                    lora=LR.as_pairs(ad), scale=self.scale,
+                    use_kernels=self.use_kernels)
+            loss = self._head_loss(h)
+            grads = torch.autograd.grad(loss, [x] + leaves)
+        for acc, g in zip(tree_leaves(state["grads"]["post"]), grads[1:]):
+            acc += g.float()
+        state["x"].copy_(grads[0])
         state["loss"].add_(loss.detach() / self.pc.accum)
 
     def _bwd(self, state, u):
         i = 2 * self.n_scan + 1 - u              # layer index, descending
         x_in = state["residuals"][i].detach().requires_grad_()
-        ad = {name: {k: t[i].detach().requires_grad_() for k, t in v.items()}
-              for name, v in state["adapters"]["scan"].items()}
-        names = list(ad)
+        ad = tree_map(lambda t: t[i].detach().requires_grad_(),
+                      state["adapters"]["scan"])
+        leaves = tree_leaves(ad)
         with torch.enable_grad():
             y = self._layer(i, x_in, LR.as_pairs(ad))
             grads = torch.autograd.grad(
-                y, [x_in] + [ad[n][k] for n in names for k in ("a", "b")],
-                grad_outputs=state["x"].to(y.dtype))
-        acc = state["grads"]["scan"]
-        for j, n in enumerate(names):
-            acc[n]["a"][i] += grads[1 + 2 * j].float()
-            acc[n]["b"][i] += grads[2 + 2 * j].float()
+                y, [x_in] + leaves, grad_outputs=state["x"].to(y.dtype))
+        for acc, g in zip(tree_leaves(state["grads"]["scan"]), grads[1:]):
+            acc[i] += g.float()
         state["x"].copy_(grads[0])
 
     def _opt(self, state, _u):

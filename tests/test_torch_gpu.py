@@ -24,13 +24,20 @@ unabsorbed form, graphed decode steps, engine tokens and co-located rounds
 against eager ones, its units' K2 launches by kind, and its MoE routing
 (256 experts, top-8, sigmoid) run with host synchronisation forbidden; a
 checkpoint of card tensors saved asynchronously and then written in
-place, and two steps of `launch/train.py` with K2 in each mode. Each skips
+place, and two steps of `launch/train.py` with K2 in each mode; K1 at
+recurrentgemma-2b's hd 256 with one KV head for 10 query heads (on a
+wrapped ring too) and phi-3-vision's hd 96, K2 at both models'
+projections on inputs at their init scales, the hybrid's unit graphs'
+K2 launches by kind, and the graphed decode step, rounds and engine on
+both smoke configs (the hybrid at 5 layers, so with "post" layers; the
+vision stub with its patches). Each skips
 with a reason where no CUDA device is present. This file
 imports no JAX (the machine with the card has none), so run it there with
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -65,6 +72,10 @@ CASES = [
     (8, 32, 8, 128, 64, 16, torch.bfloat16),    # llama3-8b serving shape
     (8, 28, 4, 128, 64, 16, torch.bfloat16),    # qwen2.5-7b, g = 7
     (8, 32, 8, 128, 64, 16, torch.float32),
+    # recurrentgemma-2b: MQA, g 10 x hd 256 = 2560, rings of 2048
+    (8, 10, 1, 256, 64, 32, torch.bfloat16),
+    (8, 10, 1, 256, 64, 32, torch.float32),
+    (8, 32, 32, 96, 64, 18, torch.bfloat16),    # phi-3-vision, hd 96, g 1
 ]
 
 
@@ -245,6 +256,50 @@ def test_k2_kernel_matches_plain(M, K, N, r, dtype, trans):
 # at the training path's s = 2, one f32 rounding per scaling (relative 6e-8)
 # at a scale that is not a power of two, far below the output's bf16
 # rounding; s = 0 skips xa @ B. Both W forms, the tolerances above.
+# recurrentgemma-2b's q/o, k/v, gate/up, down and phi-3-vision's q/k/v/o,
+# gate/up, down at M 2048 (a 2 x 1024 microbatch), forward and dx form
+K2_MODEL_CASES = [(2048, K, N, trans)
+                  for K, N in ((2560, 2560), (2560, 256), (2560, 7680),
+                               (7680, 2560), (3072, 3072), (3072, 8192),
+                               (8192, 3072))
+                  for trans in (False, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,trans", K2_MODEL_CASES)
+def test_k2_kernel_at_model_shapes_matches_plain(M, K, N, trans):
+    """The wgmma kernel at the hybrid's and phi-3-vision's projections, r
+    16, on inputs at the model's scales, as chip_smoke.py's phase 5 draws
+    them (x ~ N(0, 1); W and A ~ N(0, 1/K), the init's; B ~ N(0, 0.05^2)),
+    at the tolerances of the test above. The 0.1-scaled inputs of that
+    test make x a ~ 0.1^2 sqrt(K) and the rank-16 term as large as x W:
+    past K ~ 3000 a bf16 rounding of x a that falls the other way in
+    another f32 summation order then moves an output by more than half
+    an ulp of the output (measured 2.03e-2 of the RMS at 3072 -> 8192 on
+    the H100), which is that test's premise."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(K + N + trans)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                ).to(torch.bfloat16)
+    x = randn(M, K)
+    w = randn(N, K, scale=K ** -0.5).t() if trans else \
+        randn(K, N, scale=K ** -0.5)
+    a, b = randn(K, 16, scale=K ** -0.5), randn(16, N, scale=0.05)
+    assert K2._k2_path(M, N, K, 16, torch.bfloat16) == "wgmma"
+    before = _k2_counts()
+    got = K2.lora_matmul(x, w, a, b, 2.0)
+    torch.cuda.synchronize()
+    after = _k2_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k in ("LAUNCHES", "LAUNCHES_WGMMA")) for k in after}
+    expect = K2.lora_matmul_plain(x, w, a, b, 2.0)
+    torch.testing.assert_close(got.float(), expect.float(), atol=3e-2,
+                               rtol=3e-2)
+    assert _rel(got, K2.lora_matmul_plain(x.float(), w, a, b, 2.0)) <= 2e-2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("scale", [0.75, 1 / 3, 0.0])
 @pytest.mark.parametrize("trans", [False, True])
@@ -435,10 +490,22 @@ def test_ssm_prefill_through_k3_matches_plain():
 # ------------------------------------------------------- CUDA graphs ----
 def _graph_cfg(arch):
     """The smoke width, LoRA rank 8 so that the units' adapted projections
-    take K2's wgmma kernel (the main path's)."""
+    take K2's wgmma kernel (the main path's); the hybrid at 5 layers, so
+    that 2 RG-LRU layers follow its superblock in "post"."""
     cfg = smoke_config(arch)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, num_layers=5)
     return dataclasses.replace(cfg, lora=dataclasses.replace(cfg.lora,
                                                              rank=8))
+
+
+def _staged(cfg, seed=1):
+    """The finetune ring of 2 x 32-token microbatches (with the vision
+    stub's patches where the model has them)."""
+    return Prefetcher(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, 32, 2, seed=seed,
+        frontend_tokens=TP.front_tokens(cfg), d_model=cfg.d_model)
+    ).batches(), 2).stacked()
 
 
 def _clone(tree):
@@ -457,32 +524,39 @@ def _assert_same(a, b):
 def _served_cache(cfg, params, dev, lengths=(5, 17, 64, 1)):
     """A 4-slot bf16 cache with each slot prefilled (through the kernels)
     as the engine's admissions fill it, and the next round's inputs. A
-    sliding-window model (smoke window 64) gets prompts past its window,
-    so its rings have wrapped."""
-    if cfg.window:
+    sliding-window or hybrid model (smoke window 64) gets prompts past
+    its window, so its rings have wrapped; a vision-stub model's prompts
+    follow their patches."""
+    if cfg.window or cfg.family == "hybrid":
         lengths = (5, 17, 70, 100)
+    front = TP.front_tokens(cfg)
     cache = MD.init_cache(cfg, len(lengths), 128, device=dev)
     gen = torch.Generator(dev).manual_seed(4)
     last = []
     for b, n in enumerate(lengths):
         one = MD.init_cache(cfg, 1, 128, device=dev)
-        toks = torch.randint(0, cfg.vocab_size, (1, n), device=dev,
-                             generator=gen)
-        logits, one = MD.prefill(params, cfg, {"tokens": toks}, one,
-                                 use_kernels=True)
-        for dst, src in zip(cache["pre"], one["pre"]):
-            for name, t in dst.items():
-                t[b] = src[name][0]
-        for name, dst in cache["scan"].items():
-            dst[:, b] = one["scan"][name][:, 0]
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, n),
+                                         device=dev, generator=gen)}
+        if front:
+            batch["frontend"] = torch.randn((1, front, cfg.d_model),
+                                            device=dev, generator=gen)
+        logits, one = MD.prefill(params, cfg, batch, one, use_kernels=True)
+        for part in ("pre", "post"):
+            for dst, src in zip(tree_leaves(cache[part]),
+                                tree_leaves(one[part])):
+                dst[b] = src[0]
+        for dst, src in zip(tree_leaves(cache["scan"]),
+                            tree_leaves(one["scan"])):
+            dst[:, b] = src[:, 0]
         last.append(logits.argmax(-1).to(torch.int32))
-    pos = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    pos = torch.tensor(lengths, dtype=torch.int32, device=dev) + front
     return cache, torch.cat(last), pos
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b",
-                                  "h2o-danube-1.8b", "deepseek-v3-671b"])
+                                  "h2o-danube-1.8b", "deepseek-v3-671b",
+                                  "recurrentgemma-2b", "phi-3-vision-4.2b"])
 def test_graphed_decode_step_equals_eager(arch):
     """The decode step captured as a CUDA graph (kernels on) gives the
     eager step's logits, greedy tokens and cache bit for bit over three
@@ -498,7 +572,7 @@ def test_graphed_decode_step_equals_eager(arch):
     torch.cuda.synchronize()
     _assert_same(cache, saved)
     cache_e = _clone(cache)
-    per_round = 0 if arch == "mamba2-780m" or cfg.mla else cfg.num_layers
+    per_round = 0 if cfg.mla else len(cfg.attn_layer_indices())
     for _ in range(3):
         logits_e, _ = MD.decode_step(params, cfg, tok, pos, cache_e,
                                      use_kernels=True)
@@ -516,7 +590,8 @@ def test_graphed_decode_step_equals_eager(arch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b",
+                                  "recurrentgemma-2b", "phi-3-vision-4.2b"])
 def test_graphed_rounds_equal_eager_rounds(arch):
     """Co-located rounds replayed from CUDA graphs (decode, then k unit
     graphs) equal eager rounds (decode_step, then k unit_step calls) bit
@@ -530,9 +605,7 @@ def test_graphed_rounds_equal_eager_rounds(arch):
     cache, tok, pos = _served_cache(cfg, params, dev)
     pc = TP.PeftConfig(micro_batch=2, seq_len=32, accum=1,
                        opt=topt.AdamWConfig(lr=1e-3, warmup_steps=1))
-    staged = Prefetcher(SyntheticCorpus(DataConfig(
-        cfg.vocab_size, 32, 2, seed=1)).batches(), pc.n_stage).stacked()
-    ft = TP.init_ft_state(cfg, pc, params, 0, staged)
+    ft = TP.init_ft_state(cfg, pc, params, 0, _staged(cfg))
     k_max = 4
     graphed = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=k_max,
                                 use_kernels=True)
@@ -544,8 +617,12 @@ def test_graphed_rounds_equal_eager_rounds(arch):
     torch.cuda.synchronize()
     _assert_same(cache, cache_e)
     _assert_same(ft, ft_e)
-    ks = [0, 1, 3, k_max] * 3
-    assert sum(ks) == 3 * TP.units_per_iteration(cfg, pc.accum)
+    # rounds of 0, 1, 3 and k_max units in turn, the last cut short, so
+    # that they run three whole iterations
+    upi = TP.units_per_iteration(cfg, pc.accum)
+    ks, cycle = [], itertools.cycle([0, 1, 3, k_max])
+    while sum(ks) < 3 * upi:
+        ks.append(min(next(cycle), 3 * upi - sum(ks)))
     for k in ks:
         lg_g, _, _ = graphed.run_round(k, tok, pos, cache, ft)
         lg_e, _, _ = eager.run_round(k, tok, pos, cache_e, ft_e)
@@ -601,7 +678,8 @@ def test_replays_count_their_captured_launches():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b",
-                                  "h2o-danube-1.8b", "deepseek-v3-671b"])
+                                  "h2o-danube-1.8b", "deepseek-v3-671b",
+                                  "recurrentgemma-2b", "phi-3-vision-4.2b"])
 def test_graphed_engine_tokens_equal_eager_engine(arch):
     """An engine replaying its decode graph (the default on the card) and
     one running eager rounds give the same greedy tokens round by round
@@ -616,9 +694,11 @@ def test_graphed_engine_tokens_equal_eager_engine(arch):
     rng = np.random.default_rng(5)
     for i, n in enumerate((9, 40, 3, 70)):
         prompt = rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
-        for eng in engines:
-            assert eng.try_admit(Request(rid=i, arrival=0.0, prompt_len=n,
-                                         max_new_tokens=12), prompt)
+        reqs = [Request(rid=i, arrival=0.0, prompt_len=n, max_new_tokens=12)
+                for _ in engines]
+        extras = engines[0]._stub_extras(reqs[0])   # the same patches
+        for eng, req in zip(engines, reqs):
+            assert eng.try_admit(req, prompt, extras)
     rounds = 0
     while engines[1].active_requests():
         assert engines[0].decode_round() == engines[1].decode_round()
@@ -900,3 +980,74 @@ def test_deepseek_routing_backward_is_bit_reproducible():
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*grads))
     assert grads[0][0].abs().amax() > 0
+
+
+# ------------------------------------ the hybrid and the vision stub ----
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k1_on_a_wrapped_mqa_ring_at_hd_256(dtype):
+    """recurrentgemma-2b's local attention: one KV head for 10 query heads
+    of hd 256 (g x hd = 2560), rings of 512 slots (window 512) holding
+    positions up to 1500, 600, 511 and 40: K1 through the model's adapter
+    against its plain version and the windowed dense oracle, at the
+    tolerances of the test above."""
+    dev = _card()
+    W, B, H, KV, hd = 512, 4, 10, 1, 256
+    gen = torch.Generator(dev).manual_seed(256)
+    cache = {"k": torch.randn((B, W, KV, hd), generator=gen, device=dev
+                              ).to(dtype),
+             "v": torch.randn((B, W, KV, hd), generator=gen, device=dev
+                              ).to(dtype),
+             "kv_pos": torch.full((B, W), -1, dtype=torch.int32, device=dev)}
+    last = torch.tensor([1500, 600, 511, 40], dtype=torch.int32, device=dev)
+    for b, p in enumerate(last.tolist()):
+        pos = torch.arange(max(p - W + 1, 0), p + 1, dtype=torch.int32,
+                           device=dev)
+        cache["kv_pos"][b, pos % W] = pos
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
+    before = K.LAUNCHES
+    got = kops.decode_attention(q, cache["k"], cache["v"], cache["kv_pos"],
+                                last, W)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES - before == 1
+    n = W // 64
+    table = torch.arange(B * n, dtype=torch.int32, device=dev).reshape(B, n)
+    plain = K.paged_decode_attention_plain(
+        q, cache["k"].reshape(B * n, 64, KV, hd),
+        cache["v"].reshape(B * n, 64, KV, hd), table,
+        torch.clamp(last + 1, max=W))
+    oracle = A.decode_attn_ref(q, cache["k"], cache["v"], cache["kv_pos"],
+                               last, W)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for expect in (plain, oracle):
+        torch.testing.assert_close(got.float(), expect.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.gpu
+def test_hybrid_unit_graphs_count_k2_by_kind():
+    """The hybrid at 5 layers (one "rra" superblock, 2 RG-LRU layers in
+    "post"), LoRA r 8 on gate/up/down and q/k/v/o: a FWD unit's graph
+    launches K2 13 times (6 for the two RG-LRU layers' MLPs, 7 for the
+    attention layer), a BWD unit's 26, HEAD's 12 (the post layers'
+    gate/up/down forward and dx), all on the wgmma kernel; the parallel
+    `rg_io` adapter takes none."""
+    dev = _card()
+    cfg = _graph_cfg("recurrentgemma-2b")
+    params = MD.init_params(cfg, 0, device=dev)
+    pc = TP.PeftConfig(micro_batch=2, seq_len=32, accum=1)
+    ft = TP.init_ft_state(cfg, pc, params, 0, _staged(cfg))
+    unit = TP.make_unit_step(cfg, pc, params, use_kernels=True)
+    units = C.GraphedUnits(unit, ft)
+    expect = {"FWD": 13, "BWD": 26, "HEAD": 12}
+    for key, graph in units.graphs.items():
+        kind = unit.kind(pc.accum * unit.upm if key == "opt" else key)
+        per = expect.get(kind, 0)
+        assert graph.launches == ({(K2, "LAUNCHES"): per,
+                                   (K2, "LAUNCHES_WGMMA"): per}
+                                  if per else {})
+    before = K2.LAUNCHES_WGMMA
+    units.run(ft, TP.units_per_iteration(cfg, 1))
+    torch.cuda.synchronize()
+    assert K2.LAUNCHES_WGMMA - before == 13 + 26 + 12
+    assert ft["iter"] == 1 and np.isfinite(float(ft["last_loss"]))

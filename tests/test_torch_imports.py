@@ -74,11 +74,13 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         assert out["opt"]["t"] == 1
 
 
-# the sliding-window, MoE and MLA configurations run; with an int8 KV
-# cache (ROADMAP.md §1 item 5.7) they still raise
+# the sliding-window, MoE, MLA, hybrid and vision-stub configurations
+# run; with an int8 KV cache (ROADMAP.md §1 item 5.7) they still raise
 STILL_UNPORTED = {"mixtral-8x7b": dict(kv_quant=True),
                   "h2o-danube-1.8b": dict(kv_quant=True),
-                  "deepseek-v3-671b": dict(kv_quant=True)}
+                  "deepseek-v3-671b": dict(kv_quant=True),
+                  "recurrentgemma-2b": dict(kv_quant=True),
+                  "phi-3-vision-4.2b": dict(kv_quant=True)}
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b",
