@@ -154,8 +154,9 @@ Then the llama3 state is freed:
      and the Function's backward at MLA q and the dense down; and at the
      projections of phases 15-16 (recurrentgemma q/o 2560 -> 2560, k/v
      2560 -> 256, gate/up 2560 -> 7680, down 7680 -> 2560; phi-3-vision
-     q/k/v/o 3072 -> 3072, gate/up 3072 -> 8192, down 8192 -> 3072), each
-     forward and W^T.
+     q/k/v/o 3072 -> 3072, gate/up 3072 -> 8192, down 8192 -> 3072;
+     seamless-m4t-large-v2 q/k/v/o 1024 -> 1024, gate/up 1024 -> 8192,
+     down 8192 -> 1024), each forward and W^T.
 Then the deepseek objects are freed:
  15. recurrentgemma-2b, whole (26 layers: 8 "rra" superblocks of two
      RG-LRU layers and local attention, then 2 RG-LRU layers in "post";
@@ -188,6 +189,34 @@ Then the recurrentgemma objects are freed:
      forward; units whose microbatch holds 576 + 1,024 positions by kind
      (672 K2 launches an iteration), one `launch/train.py` step (669),
      and a co-located serve as phase 7.
+Then the phi-3-vision objects are freed:
+ 17. seamless-m4t-large-v2, whole (24 encoder and 24 decoder layers, d
+     1024, 16 heads of hd 64, d_ff 8192, vocab 256206 untied; 2.03 B
+     parameters), each request with 256 stub encoder frames: its
+     parameter count held at the configuration's; served from the decode
+     graph at 8 slots and s_max 1024, 16 prompts of 64-512 tokens, K1 on
+     every decoder layer's self-attention (24 launches a round; the
+     cross-attention reads the cached K/V in plain torch, as in the
+     reference); a 300-token prefill split into the encoder and the
+     decoder; K1 at hd 64 (g 1) on the served caches of 8 requests after 8
+     rounds against its plain version and the dense oracle, timed beside
+     its bound and SDPA; the A/B, the round beside the bytes it reads by
+     part, a graphed step bit-equal to the eager one; a 300-token prefill
+     and a decode step against the forward; the units by kind (EMBED runs
+     the 24-layer encoder over 2 x 512 frames; 504 K2 launches an
+     iteration), two one-shot steps of `launch/train.py` (501 each) and
+     one --layer-units step, and a co-located serve as phase 7.
+Then the seamless objects are freed:
+ 18. llama3-8b with an int8 KV cache (`kv_quant`; the weights of phase 3,
+     made anew from seed 0): its cache bytes beside phase 3's bf16 cache;
+     phase 3's 16 requests served from the decode graph, every attention
+     layer's decode through `decode_attn_ref` with the scales (32 oracle
+     decodes a round, counted; no K1: the reference has no int8 kernel
+     path either), the greedy tokens against phase 3's; the A/B and a
+     graphed step bit-equal to the eager one; the first decode step's
+     logits from an int8 and a bf16 cache on 8 prompts of 300 tokens,
+     within 5 % of the largest |logit|; 16 requests served co-located with
+     the predictor fit from the cost model (no profiling).
 The second line from the end lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repository
 around it, the script exits nonzero and prints no result.
@@ -678,6 +707,7 @@ def k2_projections(cfg, kind):
     if kind == "hybrid_block":
         return sum(k2_projections(cfg, MD._sub_kind(ch))
                    for ch in cfg.hybrid_pattern)
+    kind = {"dec": "attn"}.get(kind, kind)     # the cross-attention: none
     return len(set(LR._target_dims(cfg, kind)) - {"ssm_io", "rg_io"})
 
 
@@ -773,7 +803,8 @@ def phase5_k2(cfg):
                 "(gate/up forward)", other_shapes=dict(
                     deepseek_k2_cases(K2, kops, M),
                     **model_k2_cases(K2, M, "recurrentgemma-2b"),
-                    **model_k2_cases(K2, M, "phi-3-vision-4.2b")))
+                    **model_k2_cases(K2, M, "phi-3-vision-4.2b"),
+                    **model_k2_cases(K2, M, "seamless-m4t-large-v2")))
 
 
 def model_k2_cases(K2, M, arch):
@@ -1026,21 +1057,35 @@ def phase6_train(cfg, params, seq_len):
                             for kind, ts in by_mode["graphed"].items()}
 
 
-def kernel_counts():
-    """Every launch and plain-call counter of the three kernel wrappers."""
+def counted_modules():
+    """(name, module) of the three kernel wrappers and of the attention
+    module, which counts the int8 caches' oracle decodes."""
     from repro_torch.kernels import decode_attention as K
     from repro_torch.kernels import lora_matmul as K2
     from repro_torch.kernels import ssd_scan as K3
+    from repro_torch.models import attention as A
+    return (("K1", K), ("K2", K2), ("K3", K3), ("oracle", A))
+
+
+def stub_inputs(cfg, seq_len):
+    """The `DataConfig` fields of a model's stub inputs for rows of
+    seq_len tokens: a vision stub's patches, an encoder-decoder's
+    seq_len // 2 encoder frames (`launch/train.py`'s rule)."""
+    from repro_torch.training import peft as P
+    return dict(frontend_tokens=P.front_tokens(cfg),
+                enc_frames=seq_len // 2 if cfg.enc_layers else 0,
+                d_model=cfg.d_model)
+
+
+def kernel_counts():
+    """Every launch and plain-call counter of the three kernel wrappers,
+    and the int8 oracle's decode count."""
     return {(name, c): getattr(mod, c)
-            for name, mod in (("K1", K), ("K2", K2), ("K3", K3))
-            for c in mod.COUNTERS}
+            for name, mod in counted_modules() for c in mod.COUNTERS}
 
 
 def reset_kernel_counts():
-    from repro_torch.kernels import decode_attention as K
-    from repro_torch.kernels import lora_matmul as K2
-    from repro_torch.kernels import ssd_scan as K3
-    for mod in (K, K2, K3):
+    for _, mod in counted_modules():
         for c in mod.COUNTERS:
             setattr(mod, c, 0)
 
@@ -1061,8 +1106,8 @@ def serve_colocated(tag, cfg, params, eng, solo_round_s, seq_len):
                                            SyntheticCorpus)
     pc = P.PeftConfig(micro_batch=2, seq_len=seq_len, accum=1)
     staged = Prefetcher(SyntheticCorpus(DataConfig(
-        cfg.vocab_size, seq_len, 2, seed=1, frontend_tokens=P.front_tokens(
-            cfg), d_model=cfg.d_model)).batches(), pc.n_stage).stacked()
+        cfg.vocab_size, seq_len, 2, seed=1, **stub_inputs(cfg, seq_len))
+    ).batches(), pc.n_stage).stacked()
     ft = P.init_ft_state(cfg, pc, params, 1, staged)
     runner = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=6,
                                use_kernels=True)
@@ -1205,8 +1250,10 @@ def phase7_colocated(cfg, params, eng, solo_round_s, seq_len, tag="colo"):
     k1, k2, k2w = counts[("K1", "LAUNCHES")], counts[("K2", "LAUNCHES")], \
         counts[("K2", "LAUNCHES_WGMMA")]
     plain = sum(n for (_, c), n in counts.items() if c == "PLAIN_CALLS")
-    # MLA decode runs no K1; the hybrid's attention layers are 1 in 3
-    k1_layers = 0 if cfg.mla else len(cfg.attn_layer_indices())
+    # MLA decode and int8 caches run no K1; the hybrid's attention layers
+    # are 1 in 3
+    k1_layers = 0 if cfg.mla or cfg.kv_quant else \
+        len(cfg.attn_layer_indices())
     log(f"{tag}: K1 launches={k1} ({k1_layers} x {m.decode_rounds} "
         f"rounds = {k1_layers * m.decode_rounds}) K2 launches={k2} "
         f"(expected from the units run: {k2_expect}; on the wgmma kernel "
@@ -1952,7 +1999,8 @@ def phases_llama3(dev):
     log(f"serve: {len(reqs)} requests, prompts "
         f"{[r.prompt_len for r in reqs]}, 32 new tokens each, decode "
         f"rounds replayed from the CUDA graph")
-    m, counts = serve_trace(eng, reqs, "serve")
+    served = {}
+    m, counts = serve_trace(eng, reqs, "serve", tokens=served)
     launches, plain_calls = counts[("K1", "LAUNCHES")], \
         counts[("K1", "PLAIN_CALLS")]
     embed_bytes = params["embed"].numel() * params["embed"].element_size()
@@ -2056,19 +2104,34 @@ def phases_llama3(dev):
                 k2=dict(launches=k2_7, **k2_main,
                         launches_by_path={"train_iteration": train_launches,
                                           "colocated_serve": k2_7}),
-                points=cost_points(cfg, colo, unit_s))
+                points=cost_points(cfg, colo, unit_s),
+                served=dict(tokens=served, cache_bytes=tree_bytes(eng.cache)))
 
 
 # ------------------------------------------- sliding window and MoE ----
-def serve_trace(eng, reqs, label):
+def serve_trace(eng, reqs, label, tokens=None):
     """Serve `reqs` (decode rounds replayed from the engine's graph) with
     every kernel counter set to 0 just before; print the serving numbers
-    and return (metrics, kernel counts)."""
+    and return (metrics, kernel counts). tokens, a dict, receives each
+    request's decoded greedy tokens by rid."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if tokens is not None:
+        decode_round = eng.decode_round
+
+        def recorded(*args, **kw):
+            out = decode_round(*args, **kw)
+            for rid, tok in out.items():
+                tokens.setdefault(rid, []).append(tok)
+            return out
+        eng.decode_round = recorded
     reset_kernel_counts()
     t0 = time.perf_counter()
-    m = eng.run_trace(reqs)
+    try:
+        m = eng.run_trace(reqs)
+    finally:
+        if tokens is not None:
+            del eng.decode_round
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernel_counts()
@@ -2417,8 +2480,7 @@ def units_by_kind(cfg, params, seq_len, name="mixtral"):
     pc = P.PeftConfig(micro_batch=2, seq_len=seq_len, accum=1)
     staged = Prefetcher(SyntheticCorpus(DataConfig(
         cfg.vocab_size, pc.seq_len, pc.micro_batch, seed=0,
-        frontend_tokens=P.front_tokens(cfg), d_model=cfg.d_model)).batches(),
-        pc.n_stage).stacked()
+        **stub_inputs(cfg, seq_len))).batches(), pc.n_stage).stacked()
     ft = P.init_ft_state(cfg, pc, params, 0, staged)
     unit = P.make_unit_step(cfg, pc, params, use_kernels=True)
     total = P.units_per_iteration(cfg, pc.accum)
@@ -2429,7 +2491,8 @@ def units_by_kind(cfg, params, seq_len, name="mixtral"):
                       for kind in ("EMBED", "FWD", "HEAD", "BWD",
                                    "EMBED_BWD") if per.get(kind))
     kinds_ = [MD._sub_kind(ch) for ch in cfg.hybrid_pattern] \
-        if unit.scan_kind == "hybrid_block" else [unit.scan_kind]
+        if unit.scan_kind == "hybrid_block" else \
+        [{"dec": "attn"}.get(unit.scan_kind, unit.scan_kind)]
     targets = "/".join(dict.fromkeys(t for kind in kinds_
                                      for t in LR._target_dims(cfg, kind)))
     torch.cuda.synchronize()
@@ -2441,9 +2504,12 @@ def units_by_kind(cfg, params, seq_len, name="mixtral"):
         ft, cold = timed_unit_run(unit, unit, ft, total)
     iter_s = time.perf_counter() - t0
     counts = kernel_counts()
-    front = P.front_tokens(cfg)
+    front, frames = P.front_tokens(cfg), stub_inputs(cfg, seq_len)[
+        "enc_frames"]
     log(f"{name} train: micro_batch 2 x seq {seq_len}"
-        f"{f' after {front} patches' if front else ''}, accum 1, LoRA r="
+        f"{f' after {front} patches' if front else ''}"
+        f"{f' with {frames} encoder frames' if frames else ''}, accum 1, "
+        f"LoRA r="
         f"{cfg.lora.rank} on {targets}; the first iteration of {total} units "
         f"in {iter_s:.3f} s (synchronized per unit), iter={ft['iter']}, "
         f"last_loss={float(ft['last_loss']):.4f} (ln V = "
@@ -2913,8 +2979,8 @@ def one_shot_step(cfg, params, seq_len, label):
     dev = params["embed"].device
     batch = {k: torch.as_tensor(v, device=dev) for k, v in next(
         SyntheticCorpus(DataConfig(cfg.vocab_size, seq_len, 2, seed=2,
-                                   frontend_tokens=P.front_tokens(cfg),
-                                   d_model=cfg.d_model)).batches()).items()}
+                                   **stub_inputs(cfg, seq_len))).batches()
+    ).items()}
     adapters = MD.init_adapters(cfg, 1, device=dev)
     step = P.make_train_step(cfg, AdamWConfig(), use_kernels=True,
                              remat=True)
@@ -3071,11 +3137,12 @@ PHI3_VISION_PARAMS = 3_821_079_552
 
 
 def decode_vs_forward(params, cfg, n, label):
-    """A prefill of n tokens (after the stub patches where the model has
-    them) and one decode step, through the kernels, against `forward`
-    over the n + 1 tokens at token n (its hidden row, projected as the
-    decode's head projects it). Held at layers x
-    DECODE_LOGIT_TOL_PER_LAYER of the largest |logit|, phase 14's rule."""
+    """A prefill of n tokens (after the stub patches, or with 256 stub
+    encoder frames, where the model has them) and one decode step, through
+    the kernels, against `forward` over the n + 1 tokens at token n (its
+    hidden row, projected as the decode's head projects it). Held at
+    layers x DECODE_LOGIT_TOL_PER_LAYER of the largest |logit|, phase 14's
+    rule."""
     from repro_torch.models import layers as L
     from repro_torch.models import model as MD
     from repro_torch.training import peft as P
@@ -3084,12 +3151,16 @@ def decode_vs_forward(params, cfg, n, label):
     toks = torch.randint(0, cfg.vocab_size, (1, n + 1), device=dev,
                          generator=gen)
     front = P.front_tokens(cfg)
+    enc_len = SEAMLESS_FRAMES if cfg.enc_layers else 0
     batch = {"tokens": toks[:, :n]}
     if front:
         batch["frontend"] = torch.randn((1, front, cfg.d_model), device=dev,
                                         generator=gen)
+    if enc_len:
+        batch["enc_frames"] = torch.randn((1, enc_len, cfg.d_model),
+                                          device=dev, generator=gen)
     with torch.no_grad():
-        cache = MD.init_cache(cfg, 1, front + n + 1, device=dev)
+        cache = MD.init_cache(cfg, 1, front + n + 1, enc_len, device=dev)
         MD.prefill(params, cfg, batch, cache, use_kernels=True)
         got, _ = MD.decode_step(
             params, cfg, toks[:, n].to(torch.int32),
@@ -3105,7 +3176,9 @@ def decode_vs_forward(params, cfg, n, label):
     tol = cfg.num_layers * DECODE_LOGIT_TOL_PER_LAYER
     same = bool((got.argmax(-1) == expect.argmax(-1)).all())
     log(f"{label}: prefill of {n} tokens"
-        f"{f' after {front} patches' if front else ''} then a decode step "
+        f"{f' after {front} patches' if front else ''}"
+        f"{f' with {enc_len} encoder frames' if enc_len else ''} then a "
+        f"decode step "
         f"(kernels on) vs forward at token {n}: max |dlogit| {err:.4f} = "
         f"{err / scale:.3e} of max |logit| {scale:.3f} (tol "
         f"{cfg.num_layers} layers x {DECODE_LOGIT_TOL_PER_LAYER} = "
@@ -3115,40 +3188,59 @@ def decode_vs_forward(params, cfg, n, label):
                              "full forward")
 
 
-def train_main_step(arch, seq_len, label):
-    """One step of `launch/train.py`'s `main` (one-shot mode, K2 on every
-    adapted projection) on the full-width `arch`, micro-batch 2 x
-    seq_len: its K2 launches held at `k2_per_step`, all wgmma, and its
-    loss finite. Returns the launches."""
+def train_main_step(arch, seq_len, label, steps=1, units=False):
+    """`steps` steps of `launch/train.py`'s `main` on the full-width
+    `arch`, micro-batch 2 x seq_len, K2 on every adapted projection: in
+    one-shot mode (`k2_per_step` launches a step) or with --layer-units
+    (graphed units: the capture's warm-up runs one iteration for real,
+    then each step replays one, `k2_per_unit` summed over an iteration).
+    K2's launches held at that count, all wgmma, and the loss finite.
+    Returns the launches."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
+    from repro_torch.models import model as MD
     from repro_torch.training import peft as P
     cfg = get_config(arch)
-    expect = k2_per_step(cfg)
+    if units:
+        _, _, n, _ = MD._plan(cfg)
+        per = k2_per_unit(cfg)
+        per_step = per["EMBED"] + per["HEAD"] + per["EMBED_BWD"] + \
+            n * (per["FWD"] + per["BWD"])
+        expect = (steps + 1) * per_step
+        why = f"{steps} + 1 (the capture's warm-up) iterations x {per_step}"
+    else:
+        expect = steps * k2_per_step(cfg)
+        why = f"{steps} x (3 x the adapted projections less the first " \
+            f"layer's {first_layer_no_dx(cfg)} with no dx)"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
     t0 = time.perf_counter()
-    out = train.main(["--arch", arch, "--steps", "1", "--batch", "2",
-                      "--seq", str(seq_len), "--use-kernels"])
+    out = train.main(["--arch", arch, "--steps", str(steps), "--batch", "2",
+                      "--seq", str(seq_len), "--use-kernels"]
+                     + (["--layer-units"] if units else []))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     c = kernel_counts()
-    front = P.front_tokens(cfg)
-    log(f"{label}: launch/train.py main, 1 one-shot step on 2 x {seq_len} "
-        f"tokens{f' after {front} patches' if front else ''} (init "
+    front, frames = P.front_tokens(cfg), stub_inputs(cfg, seq_len)[
+        "enc_frames"]
+    log(f"{label}: launch/train.py main, {steps} "
+        f"{'--layer-units' if units else 'one-shot'} step(s) on 2 x "
+        f"{seq_len} tokens{f' after {front} patches' if front else ''}"
+        f"{f' with {frames} encoder frames' if frames else ''} (init "
         f"included) in {secs:.3f} s: K2 launches="
-        f"{c[('K2', 'LAUNCHES')]} (expected {expect}: 3 x the adapted "
-        f"projections less the first layer's {first_layer_no_dx(cfg)} with "
-        f"no dx), wgmma {c[('K2', 'LAUNCHES_WGMMA')]}, plain calls "
+        f"{c[('K2', 'LAUNCHES')]} (expected {expect}: {why}), wgmma "
+        f"{c[('K2', 'LAUNCHES_WGMMA')]}, plain calls "
         f"{c[('K2', 'PLAIN_CALLS')]}; max_memory_allocated_gb="
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
     if c[("K2", "LAUNCHES")] != expect or \
             c[("K2", "LAUNCHES_WGMMA")] != expect or c[("K2", "PLAIN_CALLS")]:
         raise AssertionError(f"{label}: the train step did not run every "
                              "adapted projection through K2's wgmma kernel")
-    if out["opt"]["t"] != 1:
-        raise AssertionError(f"{label}: the train step did not finish")
+    loss = out["last_loss"] if units else None
+    if out["opt"]["t"] != steps or \
+            (units and not np.isfinite(float(loss))):
+        raise AssertionError(f"{label}: the train steps did not finish")
     del out
     return c[("K2", "LAUNCHES")]
 
@@ -3161,6 +3253,10 @@ def served_round_bound(label, cfg, params, eng, ab, ctx):
     read = tree_bytes(params) + tree_bytes(eng.cache)
     if not cfg.tie_embeddings:          # the input embedding: 8 rows read
         read -= tree_bytes(params["embed"])
+    if cfg.enc_layers:      # the encoder runs at admission; the cross K/V
+        xattn = params["scan"]["xattn"]         # are read from the cache
+        read -= tree_bytes(params["enc"]) + tree_bytes(xattn["wk"]) + \
+            tree_bytes(xattn["wv"])
     bound_ms = read / HBM_BYTES_PER_S * 1e3
     model_ms = 1e3 * CostModel(cfg, InstanceSpec()).decode_solo(
         8, ctx, noisy=False)
@@ -3430,6 +3526,357 @@ def phase16_phi3_vision(dev):
                     "colocated_serve_phi3_vision": k2_colo})
 
 
+# seamless-m4t-large-v2: the stub encoder frames of each request in phase
+# 17 (launch/serve.py's are the reference's 16), and its parameter count
+SEAMLESS_FRAMES = 256
+SEAMLESS_PARAMS = 2_034_782_208            # ModelConfig.param_count()
+
+
+def host_ms(fn, n=5):
+    """Median host-clock ms of n calls, each ended by a synchronize, after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def phase17_seamless(dev):
+    """seamless-m4t-large-v2, whole (24 encoder and 24 decoder layers, d
+    1024, 16 heads of hd 64, d_ff 8192, vocab 256206 untied), each request
+    with 256 stub encoder frames: its parameter count; 16 requests served
+    from the decode graph, K1 on every decoder layer's self-attention; the
+    prefill split into its encoder and its decoder; K1 at hd 64 (g 1) on
+    the served caches against its plain version and the dense oracle,
+    timed beside its bound and SDPA; the A/B, the round beside its read
+    bound, a graphed step bit-equal to the eager one; prefill + decode
+    against the forward; the units by kind (EMBED runs the encoder), two
+    one-shot steps and one --layer-units step of `launch/train.py`, and a
+    co-located serve. Returns the kernels-line numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as K
+    from repro_torch.models import model as MD
+    from repro_torch.serving.engine import EngineMetrics, ServingEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.tree import tree_leaves
+    # -------------------------------- 17. seamless-m4t-large-v2, whole --
+    cfg = get_config("seamless-m4t-large-v2")
+    Fr, d = SEAMLESS_FRAMES, cfg.d_model
+    t0 = time.perf_counter()
+    params = MD.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def numel(tree):
+        return sum(t.numel() for t in tree_leaves(tree))
+    count = numel(params)
+    log(f"seamless-m4t-large-v2: {cfg.enc_layers} encoder and "
+        f"{cfg.num_layers} decoder layers, d {d}, {cfg.num_heads} heads / "
+        f"{cfg.num_kv_heads} KV of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} (untied); parameters {count:,} (param_count "
+        f"{cfg.param_count():,} + the two final norms): encoder "
+        f"{numel(params['enc']):,}, decoder layer "
+        f"{numel(params['scan']) // cfg.num_layers:,} (its cross-attention "
+        f"{numel(params['scan']['xattn']) // cfg.num_layers:,}), embedding "
+        f"and unembedding {params['embed'].numel():,} each; weights "
+        f"{tree_bytes(params) / 1e9:.3f} GB bf16, random (seed 0), init "
+        f"{init_s:.2f} s")
+    if cfg.param_count() != SEAMLESS_PARAMS or \
+            count != cfg.param_count() + 2 * d:
+        raise AssertionError("seamless: the parameter count is not the "
+                             "configuration's")
+    eng = ServingEngine(cfg, params, max_slots=8, s_max=1024, enc_len=Fr,
+                        use_kernels=True, device=dev)
+    if not eng.graphs:
+        raise AssertionError("the engine does not replay a CUDA graph")
+    captured(f"seamless decode step (8 slots, s_max 1024, {Fr} frames)",
+             eng.precompile)
+    eng.run_trace([Request(rid=-1, arrival=0.0, prompt_len=64,
+                           max_new_tokens=2)])       # warm-up, not counted
+    eng.metrics = EngineMetrics()
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, arrival=i * 0.01,
+                    prompt_len=int(rng.integers(64, 513)), max_new_tokens=32)
+            for i in range(16)]
+    scan = eng.cache["scan"]
+    log(f"seamless serve: {len(reqs)} requests of {Fr} encoder frames and "
+        f"prompts {[r.prompt_len for r in reqs]}, 32 new tokens each; the "
+        f"self cache {tree_bytes(scan['self']) / 1e9:.3f} GB, the cross K/V "
+        f"{(tree_bytes(scan['xk']) + tree_bytes(scan['xv'])) / 1e9:.3f} GB")
+    m, counts = serve_trace(eng, reqs, "seamless serve")
+    k1, plain = counts[("K1", "LAUNCHES")], counts[("K1", "PLAIN_CALLS")]
+    log(f"seamless serve: K1 launches={k1} ({cfg.num_layers} decoder layers "
+        f"x {m.decode_rounds} rounds = {cfg.num_layers * m.decode_rounds}), "
+        f"plain calls={plain}")
+    if k1 != cfg.num_layers * m.decode_rounds or plain:
+        raise AssertionError("seamless decode did not run through K1")
+    gen = torch.Generator(dev).manual_seed(17)
+    frames = torch.randn((1, Fr, d), device=dev, generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (1, 300), device=dev,
+                         generator=gen)
+    one = MD.init_cache(cfg, 1, 1024, Fr, device=dev)
+    enc_ms = host_ms(lambda: MD._encode(params, cfg, {"enc_frames": frames}))
+    pre_ms = host_ms(lambda: MD.prefill(params, cfg, {
+        "tokens": toks, "enc_frames": frames}, one, use_kernels=True))
+    del one
+    log(f"seamless prefill of 300 tokens with {Fr} frames (host clock, "
+        f"synchronized, median of 5): {pre_ms:.3f} ms = the encoder "
+        f"{enc_ms:.3f} ms + the decoder stack and head "
+        f"{pre_ms - enc_ms:.3f} ms; the served admissions' prefill median "
+        f"{1e3 * statistics.median(m.prefill_s):.3f} ms")
+    late = [Request(rid=1000 + i, arrival=0.0, prompt_len=n,
+                    max_new_tokens=32)
+            for i, n in enumerate((1, 64, 100, 200, 300, 400, 450, 500))]
+    for r in late:
+        if not eng.try_admit(r, rng.integers(0, cfg.vocab_size,
+                                             size=r.prompt_len,
+                                             dtype=np.int32),
+                             eng._stub_extras(r)):
+            raise AssertionError("seamless: the K1 check's requests were "
+                                 "not admitted")
+    for _ in range(8):
+        eng.decode_round()
+    q = torch.randn((8, cfg.num_heads, cfg.head_dim), device=dev,
+                    generator=torch.Generator(dev).manual_seed(8)
+                    ).to(torch.bfloat16)
+    checked = [check_k1_on_ring(
+        K, {n: t[layer] for n, t in scan["self"].items()}, q, 0,
+        f"seamless hd 64 g 1 (decoder layer {layer}'s self caches of 16 "
+        f"pages, prompts of 1-500 tokens served 8 decode rounds)")
+        for layer in (0, cfg.num_layers - 1)]
+    while eng.active_requests():
+        eng.decode_round()
+    ab = ab_solo_rounds(eng, cfg, "seamless serve")
+    kv_pos = scan["self"]["kv_pos"][0]
+    ctx = float((kv_pos >= 0).sum(dim=-1).float().mean())
+    served_round_bound("seamless serve", cfg, params, eng, ab, ctx)
+    # what a round reads, by part, with the self K/V of the positions held
+    xattn = params["scan"]["xattn"]
+    dec = tree_bytes(params["scan"]) - tree_bytes(xattn["wk"]) - \
+        tree_bytes(xattn["wv"])
+    unembed = tree_bytes(params["unembed"]) + tree_bytes(params["final_norm"])
+    self_kv = cfg.num_layers * eng.max_slots * ctx * 2 * cfg.num_kv_heads * \
+        cfg.head_dim * scan["self"]["k"].element_size()
+    cross = tree_bytes(scan["xk"]) + tree_bytes(scan["xv"])
+    read = dec + unembed + self_kv + cross
+    log(f"seamless serve: a round reads the decoder's weights but the "
+        f"cross K/V projections {dec / 1e9:.3f} GB, the unembedding "
+        f"{unembed / 1e9:.3f} GB, the self K/V of {ctx:.0f} positions a "
+        f"slot {self_kv / 1e9:.3f} GB and the cross K/V {cross / 1e9:.3f} GB"
+        f" = {read / 1e9:.3f} GB: bound {read / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms; the graphed round is {1e3 * ab['graphed'][0]:.3f} ms (ratio "
+        f"{1e3 * ab['graphed'][0] / (read / HBM_BYTES_PER_S * 1e3):.3f})")
+    graphed_decode_bits("seamless serve", params, cfg, eng.cache,
+                        torch.tensor(eng.last_token, device=dev),
+                        (kv_pos.amax(dim=1) + 1).to(torch.int32))
+    decode_vs_forward(params, cfg, 300, "seamless")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches, unit_s = units_by_kind(cfg, params, seq_len=1024,
+                                           name="seamless")
+    log(f"seamless train: EMBED (the embedding and the {cfg.enc_layers}-"
+        f"layer encoder over 2 x {stub_inputs(cfg, 1024)['enc_frames']} "
+        f"frames) graphed ms_median {1e3 * unit_s['EMBED']:.3f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    oneshot = train_main_step("seamless-m4t-large-v2", 1024,
+                              "seamless train", steps=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    units_step = train_main_step("seamless-m4t-large-v2", 1024,
+                                 "seamless train", steps=1, units=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_colo, k2_colo, _ = phase7_colocated(cfg, params, eng, m.round_s,
+                                           seq_len=1024, tag="colo seamless")
+    return dict(k1={"serve_seamless": k1, "colocated_serve_seamless": k1_colo},
+                hd64=dict(checked[0][0], shape="B 8, H 16, KV 16, hd 64, "
+                          "bf16, caches of 1024 as 16 pages of 64",
+                          served_caches_oracle_max_abs_err=max(
+                              c[1] for c in checked)),
+                k2={"train_iteration_seamless": train_launches,
+                    "train_oneshot_seamless": oneshot,
+                    "train_units_seamless": units_step,
+                    "colocated_serve_seamless": k2_colo})
+
+
+def colocated_costmodel(tag, cfg, params, eng, qos_s, seq_len):
+    """Co-located serving with the predictor fit from the cost model
+    (`fit_from_costmodel` on the H100 spec with the committed constants,
+    so no round is profiled) under `qos_s`: the runner's graphs captured,
+    then 16 requests through graphed rounds and the QoS scheduler, every
+    counter set to 0 just before. Returns (metrics, counts, the kinds of
+    the units run)."""
+    from repro_torch.core import colocation as C
+    from repro_torch.core.costmodel import CostModel, InstanceSpec
+    from repro_torch.core.predictor import TwoStageLatencyPredictor
+    from repro_torch.core.scheduler import QoSScheduler, SchedulerConfig
+    from repro_torch.serving.engine import EngineMetrics
+    from repro_torch.serving.request import Request
+    from repro_torch.training import peft as P
+    from repro_torch.training.data import (DataConfig, Prefetcher,
+                                           SyntheticCorpus)
+    pc = P.PeftConfig(micro_batch=FT_MICRO_BATCH, seq_len=seq_len, accum=1)
+    staged = Prefetcher(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, seq_len, FT_MICRO_BATCH, seed=1,
+        **stub_inputs(cfg, seq_len))).batches(), pc.n_stage).stacked()
+    ft = P.init_ft_state(cfg, pc, params, 1, staged)
+    runner = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=6,
+                               use_kernels=True)
+    torch.cuda.reset_peak_memory_stats()
+    captured(f"{tag} co-located rounds", lambda: runner.precompile(
+        eng.cache, ft))
+    pred = TwoStageLatencyPredictor(k_max=6)
+    pred.fit_from_costmodel(CostModel(cfg, InstanceSpec()),
+                            micro_batch=FT_MICRO_BATCH, ft_seq=seq_len)
+    sched = QoSScheduler(pred, SchedulerConfig(qos_s=qos_s, k_max=6))
+    eng.metrics = EngineMetrics()
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=900 + i, arrival=i * 0.01,
+                    prompt_len=int(rng.integers(64, 513)), max_new_tokens=32)
+            for i in range(16)]
+    u0, upi = ft["unit_idx"], P.units_per_iteration(cfg, pc.accum)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    m, ft = C.run_colocated_trace(eng, runner, sched, ft, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    ks = [dd.k for dd in sched.decisions]
+    log(f"{tag}: the cost-model fit at qos_s={qos_s:.4f} (1.5 x the "
+        f"graphed solo round at 8 slots): {len(reqs)} requests, rounds="
+        f"{m.decode_rounds} round_ms_median="
+        f"{1e3 * statistics.median(m.round_s):.3f} round_ms_p90="
+        f"{1e3 * float(np.percentile(m.round_s, 90)):.3f} mean_k="
+        f"{statistics.mean(ks):.3f} violations={sched.violations} units="
+        f"{m.ft_units} finetune_tokens_per_s="
+        f"{m.ft_units / upi * FT_MICRO_BATCH * seq_len / wall:.1f} (units / "
+        f"{upi} per iteration x {FT_MICRO_BATCH} x {seq_len} tokens / wall "
+        f"{wall:.3f} s)")
+    peaks(tag)
+    if not all(rq.phase.value == "done" and rq.generated == 32
+               for rq in reqs):
+        raise AssertionError(f"{tag}: not every request finished")
+    return m, counts, [runner.unit_step.kind((u0 + j) % upi)
+                       for j in range(m.ft_units)]
+
+
+def phase18_llama3_int8(dev, served):
+    """llama3-8b at full width with an int8 KV cache (`kv_quant`), the
+    weights of phase 3 (seed 0) made anew: its cache bytes beside phase
+    3's bf16 cache; phase 3's 16 requests served from the decode graph,
+    every attention layer's decode through the counted oracle and none
+    through K1 (the reference's route); the greedy tokens against phase
+    3's; the A/B and a graphed step bit-equal to the eager one; the first
+    decode step's logits from an int8 and a bf16 cache on the same
+    prompts, within 5 % of the largest |logit|; co-located rounds with the
+    predictor fit from the cost model. Returns the kernels-line numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    from repro_torch.serving.engine import EngineMetrics, ServingEngine
+    from repro_torch.serving.request import Request
+    # ------------------------------ 18. llama3-8b, int8 KV cache --
+    cfg = dataclasses.replace(get_config("llama3-8b"), kv_quant=True)
+    params = MD.init_params(cfg, 0, device=dev)
+    eng = ServingEngine(cfg, params, max_slots=8, s_max=1024,
+                        use_kernels=True, device=dev)
+    scan = eng.cache["scan"]
+    kv = tree_bytes({n: scan[n] for n in ("k", "v")})
+    scales = tree_bytes({n: scan[n] for n in ("k_scale", "v_scale")})
+    log(f"int8 serve: the cache {tree_bytes(eng.cache) / 1e9:.3f} GB (int8 "
+        f"K/V {kv / 1e9:.3f} GB + scales {scales / 1e9:.3f} GB: "
+        f"{scales / (cfg.num_layers * 8 * 1024):.0f} B per token and layer, "
+        f"+ positions) against phase 3's bf16 cache "
+        f"{served['cache_bytes'] / 1e9:.3f} GB (ratio "
+        f"{tree_bytes(eng.cache) / served['cache_bytes']:.3f}); the page "
+        f"accounting counts {eng.pages.spec.page_bytes} B a page, a bf16 "
+        f"page's (the reference's kv_bytes_per_token_layer)")
+    if not eng.graphs:
+        raise AssertionError("the engine does not replay a CUDA graph")
+    captured("int8 decode step (8 slots)", eng.precompile)
+    eng.run_trace([Request(rid=-1, arrival=0.0, prompt_len=64,
+                           max_new_tokens=2)])       # phase 3's warm-up
+    eng.metrics = EngineMetrics()
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, arrival=i * 0.01,
+                    prompt_len=int(rng.integers(64, 513)), max_new_tokens=32)
+            for i in range(16)]
+    tokens = {}
+    m, counts = serve_trace(eng, reqs, "int8 serve", tokens=tokens)
+    oracle = counts[("oracle", "INT8_ORACLE_CALLS")]
+    k1 = counts[("K1", "LAUNCHES")] + counts[("K1", "PLAIN_CALLS")]
+    log(f"int8 serve: oracle decodes={oracle} ({cfg.num_layers} x "
+        f"{m.decode_rounds} rounds = {cfg.num_layers * m.decode_rounds}), K1 "
+        f"launches and plain calls={k1}")
+    if oracle != cfg.num_layers * m.decode_rounds or k1:
+        raise AssertionError("int8 decode did not take the oracle alone")
+    same = sum(a == b for rid, ts in tokens.items()
+               for a, b in zip(ts, served["tokens"][rid]))
+    total = sum(len(ts) for ts in tokens.values())
+    whole = sum(ts == served["tokens"][rid] for rid, ts in tokens.items())
+    first = [next((i for i, (a, b) in enumerate(zip(ts, served["tokens"][
+        rid])) if a != b), len(ts)) for rid, ts in sorted(tokens.items())]
+    log(f"int8 serve: greedy tokens equal to phase 3's (bf16 cache, K1): "
+        f"{same} of {total}; requests equal throughout {whole} of "
+        f"{len(tokens)}; decoded tokens before the first difference by "
+        f"request {first}")
+    ab = ab_solo_rounds(eng, cfg, "int8 serve")
+    kv_pos = scan["kv_pos"][0]
+    graphed_decode_bits("int8 serve", params, cfg, eng.cache,
+                        torch.tensor(eng.last_token, device=dev),
+                        (kv_pos.amax(dim=1) + 1).to(torch.int32))
+    toks = torch.randint(0, cfg.vocab_size, (8, 301), device=dev,
+                         generator=torch.Generator(dev).manual_seed(18))
+    out = {}
+    for quant in (False, True):
+        c = dataclasses.replace(cfg, kv_quant=quant)
+        cache = MD.init_cache(c, 8, 512, device=dev)
+        with torch.no_grad():
+            MD.prefill(params, c, {"tokens": toks[:, :300]}, cache,
+                       use_kernels=True)
+            out[quant], _ = MD.decode_step(
+                params, c, toks[:, 300].to(torch.int32),
+                torch.full((8,), 300, dtype=torch.int32, device=dev), cache,
+                use_kernels=True)
+        del cache
+    torch.cuda.synchronize()
+    rel = ((out[True].float() - out[False].float()).abs().max()
+           / out[False].float().abs().max()).item()
+    agree = (out[True].argmax(-1) == out[False].argmax(-1)).float().mean()
+    log(f"int8 decode step vs the bf16 cache's (K1) on 8 prompts of 300 "
+        f"tokens, the same weights: max |dlogit| / max |logit| {rel:.4f} "
+        f"(the reference's bound 0.05), greedy agreement {agree.item():.3f}")
+    if rel >= 0.05 or not torch.isfinite(out[True]).all():
+        raise AssertionError("the int8 cache's logits are not within 5 % of "
+                             "the bf16 cache's")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    m, counts, kinds = colocated_costmodel(
+        "colo int8", cfg, params, eng, 1.5 * ab["graphed"][0], seq_len=1024)
+    per = k2_per_unit(cfg)
+    k2_expect = sum(per.get(kind, 0) for kind in kinds)
+    k2, k2w = counts[("K2", "LAUNCHES")], counts[("K2", "LAUNCHES_WGMMA")]
+    oracle = counts[("oracle", "INT8_ORACLE_CALLS")]
+    plain = sum(n for (_, c), n in counts.items() if c == "PLAIN_CALLS")
+    log(f"colo int8: oracle decodes={oracle} ({cfg.num_layers} x "
+        f"{m.decode_rounds} rounds), K1 launches="
+        f"{counts[('K1', 'LAUNCHES')]}, K2 launches={k2} (expected from the "
+        f"units run: {k2_expect}; wgmma {k2w}), plain calls={plain}")
+    if oracle != cfg.num_layers * m.decode_rounds or \
+            counts[("K1", "LAUNCHES")] or k2 != k2_expect or k2w != k2 or \
+            plain:
+        raise AssertionError("colo int8: the co-located rounds did not run "
+                             "the oracle and K2 alone")
+    return dict(k1={"serve_llama3_int8": 0}, k2={
+        "colocated_serve_llama3_int8": k2})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3532,19 +3979,36 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     vision = phase16_phi3_vision(dev)
-    log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s; whole run "
+    log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    seamless = phase17_seamless(dev)
+    log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    int8 = phase18_llama3_int8(dev, llama.pop("served"))
+    log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     llama["k1"]["launches_by_path"].update(serve_danube=danube["launches"],
                                            **mixtral["k1"],
                                            **deepseek["k1"], **hybrid["k1"],
-                                           **vision["k1"])
+                                           **vision["k1"], **seamless["k1"],
+                                           **int8["k1"])
     llama["k1"]["hd80"] = {k: v for k, v in danube.items()
                            if k != "launches"}
     llama["k1"]["hd256"] = hybrid["hd256"]
     llama["k1"]["hd96"] = vision["hd96"]
+    llama["k1"]["hd64"] = seamless["hd64"]
     llama["k2"]["launches_by_path"].update(mixtral["k2"], **train,
                                            **deepseek["k2"], **hybrid["k2"],
-                                           **vision["k2"])
+                                           **vision["k2"], **seamless["k2"],
+                                           **int8["k2"])
 
     log(f"card: {card_line()}")
     log(json.dumps({"kernels": [

@@ -5,8 +5,7 @@ a reduced smoke sibling (``smoke_config``) exercised by tests; full configs
 are only lowered symbolically by the dry-run.
 
 The port's own copy of `repro.configs`; the config files beside it are
-copies too. `models/model.py` raises for the families the port does not
-run yet.
+copies too.
 """
 
 from __future__ import annotations

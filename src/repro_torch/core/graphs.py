@@ -26,7 +26,8 @@ on one stream. That is why the unit engine updates its state in place
 (`training/peft.py`).
 
 Kernel counters: the kernel wrappers count launches on the host, when they
-are called. Capture calls them without launching anything, so `capture`
+are called, and `models/attention.py` counts the int8 caches' oracle
+decodes. Capture calls them without launching anything, so `capture`
 takes the counts that moved back out, and `Graph.replay` adds them again
 at every replay: the counters keep counting device launches.
 """
@@ -41,9 +42,10 @@ import torch
 from repro_torch.kernels import decode_attention as _k1
 from repro_torch.kernels import lora_matmul as _k2
 from repro_torch.kernels import ssd_scan as _k3
+from repro_torch.models import attention as _attn
 from repro_torch.tree import tree_leaves
 
-_KERNELS = (_k1, _k2, _k3)
+_COUNTED = (_k1, _k2, _k3, _attn)
 
 
 def resolve(graphs: Optional[bool], device) -> bool:
@@ -59,7 +61,7 @@ def resolve(graphs: Optional[bool], device) -> bool:
 
 
 def _counts() -> Dict[Tuple[object, str], int]:
-    return {(m, n): getattr(m, n) for m in _KERNELS for n in m.COUNTERS}
+    return {(m, n): getattr(m, n) for m in _COUNTED for n in m.COUNTERS}
 
 
 class Graph:

@@ -9,7 +9,10 @@ adapter (`repro/kernels/ops.py`), `decode_attention` never falls back to
 the dense oracle: a cache whose length 64 does not divide is read as one
 page per slot, a windowed (SWA) ring goes through the kernel too (the
 reference's adapter sends every windowed cache to the oracle), and what
-the kernel cannot compute (int8 caches) raises. `ssd_scan` is the
+the kernel cannot compute raises: an int8 cache (`scales`), which K1
+cannot read and `attention.attn_decode` sends to the oracle before this
+adapter is reached (the reference's adapter takes the scales and ignores
+them). `ssd_scan` is the
 forward-only SSD scan kernel's wrapper itself, with the contract of
 `models/ssm.py::ssd_chunked`; unlike
 `repro/kernels/ops.py::ssd_scan` it pads no ragged tail (the kernel reads
@@ -40,9 +43,9 @@ def decode_attention(q, kc, vc, kv_pos, positions, window: int = 0,
     first min(p + 1, S) slots. q is read in the cache's dtype and the
     output is in the cache's dtype, as `decode_attn_ref`'s is."""
     if scales is not None and scales[0] is not None:
-        raise NotImplementedError(
-            "int8 KV caches (kv_quant) are not ported yet (ROADMAP.md §1 "
-            "item 5.7)")
+        raise ValueError(
+            "K1 has no int8 path (the reference's kernel has none either): "
+            "attention.attn_decode routes int8 caches to decode_attn_ref")
     B, S, KV, hd = kc.shape
     if window > 0 and S > window:
         raise ValueError(f"a windowed cache holds at most window = {window} "

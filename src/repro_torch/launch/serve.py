@@ -32,6 +32,13 @@ are printed); on the CPU they run eagerly.
       --smoke --device cpu --colocate --use-kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi-3-vision-4.2b \
       --smoke --device cpu --colocate --use-kernels
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-large-v2 --smoke --device cpu --colocate \
+      --use-kernels
+
+An encoder-decoder model (`seamless-m4t-large-v2`) serves requests of 16
+stub encoder frames each and finetunes on rows of 16 frames, as the
+reference's `launch/serve.py` does.
 """
 
 from __future__ import annotations
@@ -91,6 +98,7 @@ def main(argv=None):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = MD.init_params(cfg, 0, device=device)
     eng = ServingEngine(cfg, params, max_slots=args.slots, s_max=args.s_max,
+                        enc_len=16 if cfg.enc_layers else 0,
                         use_kernels=args.use_kernels, device=device)
 
     rng = np.random.default_rng(0)
@@ -120,7 +128,8 @@ def main(argv=None):
     pc = P.PeftConfig(micro_batch=2, seq_len=32, accum=1)
     pf = Prefetcher(SyntheticCorpus(DataConfig(
         cfg_ft.vocab_size, pc.seq_len, pc.micro_batch,
-        frontend_tokens=P.front_tokens(cfg_ft), d_model=cfg_ft.d_model)
+        frontend_tokens=P.front_tokens(cfg_ft),
+        enc_frames=16 if cfg_ft.enc_layers else 0, d_model=cfg_ft.d_model)
     ).batches(), pc.n_stage)
     ft_state = P.init_ft_state(cfg_ft, pc, params_ft, 2, pf.stacked())
     runner = ColocatedRunner(cfg, params, cfg_ft, params_ft, pc,

@@ -1,7 +1,6 @@
 """Attention layers: GQA/MHA (+ qk_norm, SWA windows) and MLA.
 
-Port of `repro/models/attention.py` for full and sliding-window
-(unquantized) caches. Two execution paths per layer:
+Port of `repro/models/attention.py`. Two execution paths per layer:
   * prefill/train: chunked flash attention over the whole sequence
   * decode: one-token attention against a KV cache (`decode_attn_ref`
     here; the CUDA kernel is swapped in by `kernels/ops.decode_attention`)
@@ -11,10 +10,17 @@ batching works): k/v (B, S, KV, hd), kv_pos (B, S) int32 (-1 = empty).
 A full cache has S = s_max and token p in slot p. A windowed (SWA) cache
 is a ring of S = min(s_max, window) slots, token p in slot p % S, so after
 position p is written it holds exactly positions max(0, p - S + 1)..p.
+An int8 cache (`quantized`, the model's `kv_quant`) holds k/v as int8 and
+per-token f32 scales k_scale/v_scale (B, S): each token's K (and V) is
+scaled by its largest |value| over (KV, hd) / 127 and rounded half to
+even (`_quantize_tok`). Decode reads it through `decode_attn_ref` alone,
+the scales folded into the scores and the softmax weights, as in the
+reference: K1 has no int8 path there either (`attn_decode` counts these
+calls in `INT8_ORACLE_CALLS`).
 An MLA cache (deepseek-v3) holds the latent instead: c_kv (B, S, kv_rank),
-k_rope (B, S, rope_dim), kv_pos (B, S). Unlike the reference, cache
-writes update the given tensors in place and return the same dict: a
-decode round then moves no cache copy.
+k_rope (B, S, rope_dim), kv_pos (B, S); it stays bf16 under `kv_quant`.
+Unlike the reference, cache writes update the given tensors in place and
+return the same dict: a decode round then moves no cache copy.
 
 MLA's decode is the reference's absorbed form: W_kv_b's key half folds
 into q and its value half is applied after the latent PV product, so
@@ -38,12 +44,19 @@ from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
 
+# decode calls that an int8 cache sent to `decode_attn_ref`; a CUDA graph
+# that captured them adds them again at every replay (`core/graphs.py`)
+INT8_ORACLE_CALLS = 0
+COUNTERS = ("INT8_ORACLE_CALLS",)
+
 
 def make_cache(cfg: ModelConfig, batch: int, s_max: int,
-               dtype=torch.bfloat16, device=None, window: int = 0
-               ) -> Dict[str, torch.Tensor]:
+               dtype=torch.bfloat16, device=None, window: int = 0,
+               quantized: bool = False) -> Dict[str, torch.Tensor]:
     """Empty per-layer cache (without the leading layer axis); a ring of
-    min(s_max, window) slots when windowed."""
+    min(s_max, window) slots when windowed; int8 K/V with per-token f32
+    scales when quantized (not for MLA, whose latent cache stays in
+    `dtype`, as in the reference)."""
     eff = min(s_max, window) if window else s_max
     if cfg.mla:
         return {
@@ -55,12 +68,40 @@ def make_cache(cfg: ModelConfig, batch: int, s_max: int,
                                  device=device),
         }
     shape = (batch, eff, cfg.num_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+    kv_dtype = torch.int8 if quantized else dtype
+    c = {
+        "k": torch.zeros(shape, dtype=kv_dtype, device=device),
+        "v": torch.zeros(shape, dtype=kv_dtype, device=device),
         "kv_pos": torch.full((batch, eff), -1, dtype=torch.int32,
                              device=device),
     }
+    if quantized:
+        c["k_scale"] = torch.zeros((batch, eff), dtype=torch.float32,
+                                   device=device)
+        c["v_scale"] = torch.zeros((batch, eff), dtype=torch.float32,
+                                   device=device)
+    return c
+
+
+def _quantize_tok(x):
+    """Per-token symmetric int8: x (B, S, KV, hd) -> (q int8, scale (B, S)
+    f32), scale = max(amax, 1e-6) / 127 and q = round(x / scale) clipped
+    to +-127; `torch.round` rounds half to even, as `jnp.round` does."""
+    x = x.float()
+    scale = torch.clamp(x.abs().amax(dim=(2, 3)), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(x / scale[:, :, None, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_entries(cache, k, v, positions):
+    """{cache leaf name: what to write into it} for a token chunk: k/v
+    (int8 with their scales for an int8 cache) and the positions."""
+    if "k_scale" not in cache:
+        return {"k": k, "v": v, "kv_pos": positions}
+    kq, ks = _quantize_tok(k)
+    vq, vs = _quantize_tok(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs,
+            "kv_pos": positions}
 
 
 # ------------------------------------------------------------- GQA paths ---
@@ -109,34 +150,36 @@ def attn_prefill(p: Params, x, positions, cfg: ModelConfig, *,
 
 def _cache_write_bulk(cache, k, v, positions, window: int = 0):
     """Scatter a token chunk (B, s, KV, hd) at `positions` (B, s), in
-    place; into slot p % S of the ring when windowed."""
+    place; into slot p % S of the ring when windowed; quantized per token
+    first into an int8 cache."""
     S_max = cache["k"].shape[1]
     slots = (positions % S_max if window else positions).long()
     bidx = torch.arange(k.shape[0], device=k.device)[:, None]
-    cache["k"][bidx, slots] = k.to(cache["k"].dtype)
-    cache["v"][bidx, slots] = v.to(cache["v"].dtype)
-    cache["kv_pos"][bidx, slots] = positions.to(torch.int32)
+    for name, t in _kv_entries(cache, k, v, positions).items():
+        cache[name][bidx, slots] = t.to(cache[name].dtype)
     return cache
 
 
 def _cache_write_prefill(cache, k, v, positions, window: int = 0):
     """Contiguous prefill write (prompt positions are arange-contiguous
-    per request, from 0), in place. A full cache takes the first S_max
-    tokens from slot 0, as does a ring of W slots a chunk of S <= W tokens
-    (token p in slot p % W = p). A ring takes of S > W tokens only the
-    last W, as two slice writes split at S % W."""
+    per request, from 0), in place; quantized per token first into an int8
+    cache. A full cache takes the first S_max tokens from slot 0, as does
+    a ring of W slots a chunk of S <= W tokens (token p in slot p % W = p:
+    the reference's `_ring_quant_fallback` scatter writes the same slots).
+    A ring takes of S > W tokens only the last W, as two slice writes
+    split at S % W."""
     S_max = cache["k"].shape[1]
     S = k.shape[1]
+    entries = _kv_entries(cache, k, v, positions)
     if not window or S <= S_max:
         n = min(S, S_max)
-        cache["k"][:, :n] = k[:, :n].to(cache["k"].dtype)
-        cache["v"][:, :n] = v[:, :n].to(cache["v"].dtype)
-        cache["kv_pos"][:, :n] = positions[:, :n].to(torch.int32)
+        for name, t in entries.items():
+            cache[name][:, :n] = t[:, :n].to(cache[name].dtype)
         return cache
     W = S_max
     split = S % W
     first = W - split
-    for name, t in (("k", k), ("v", v), ("kv_pos", positions)):
+    for name, t in entries.items():
         buf, t = cache[name], t[:, -W:].to(cache[name].dtype)
         buf[:, split:] = t[:, :first]
         if split:
@@ -148,14 +191,24 @@ def attn_decode(p: Params, x, positions, cache: Dict, cfg: ModelConfig, *,
                 window: int = 0, lora=None, lora_scale: float = 0.0,
                 decode_attn_fn: Optional[Callable] = None):
     """One-token decode. x: (B, 1, d); positions: (B,). Returns (out,
-    cache); the new token's K/V are written into the cache in place."""
+    cache); the new token's K/V are written into the cache in place. An
+    int8 cache goes to `decode_attn_ref` with its scales whatever
+    `decode_attn_fn` is (the reference's route: K1 has no int8 path),
+    counted in `INT8_ORACLE_CALLS`."""
+    global INT8_ORACLE_CALLS
     q, k, v = _project_qkv(p, x, cfg, lora, lora_scale)
     q = L.apply_rope(q, positions[:, None], cfg.rope_theta)
     k = L.apply_rope(k, positions[:, None], cfg.rope_theta)
     cache = _cache_write_bulk(cache, k, v, positions[:, None], window)
-    fn = decode_attn_ref if decode_attn_fn is None else decode_attn_fn
-    o = fn(q[:, 0], cache["k"], cache["v"], cache["kv_pos"], positions,
-           window)
+    scales = (cache.get("k_scale"), cache.get("v_scale"))
+    if scales[0] is not None:
+        INT8_ORACLE_CALLS += 1
+        o = decode_attn_ref(q[:, 0], cache["k"], cache["v"], cache["kv_pos"],
+                            positions, window, scales=scales)
+    else:
+        fn = decode_attn_ref if decode_attn_fn is None else decode_attn_fn
+        o = fn(q[:, 0], cache["k"], cache["v"], cache["kv_pos"], positions,
+               window)
     out = _out_proj(p, o[:, None], cfg, lora, lora_scale)
     return out, cache
 
@@ -166,17 +219,24 @@ def decode_attn_ref(q, kc, vc, kv_pos, positions, window: int = 0,
 
     Keeps the reference's bf16 behaviour: the softmax weights are cast to
     the cache dtype before the PV product (f32 accumulation), and the
-    output is in the cache dtype."""
-    if scales is not None and scales[0] is not None:
-        raise NotImplementedError(
-            "int8 KV caches (kv_quant) are not ported yet (ROADMAP.md §1 "
-            "item 5.7)")
+    output is in the cache dtype. For an int8 cache (scales = (k_scale,
+    v_scale), (B, S) f32) the scales fold into the scores and the softmax
+    weights, not into the cache: the scores are q rounded to bf16 x the
+    int8 K (f32 sums) times k_scale and the scale, the softmax weights
+    times v_scale are cast to bf16 before PV, the sum is normalised by the
+    weights' sum without v_scale, and the output is in q's dtype, as in
+    the reference."""
     B, H, hd = q.shape
     KV = kc.shape[2]
     g = H // KV
     scale = scale if scale is not None else hd ** -0.5
-    qr = q.reshape(B, KV, g, hd).float()
-    s = torch.einsum("bkgh,bskh->bkgs", qr, kc.float()) * scale
+    quant = scales is not None and scales[0] is not None
+    qr = q.reshape(B, KV, g, hd)
+    if quant:
+        s = torch.einsum("bkgh,bskh->bkgs", qr.to(torch.bfloat16).float(),
+                         kc.float()) * scales[0][:, None, None, :] * scale
+    else:
+        s = torch.einsum("bkgh,bskh->bkgs", qr.float(), kc.float()) * scale
     valid = (kv_pos >= 0) & (kv_pos <= positions[:, None])
     if window > 0:
         valid = valid & (kv_pos > positions[:, None] - window)
@@ -186,9 +246,12 @@ def decode_attn_ref(q, kc, vc, kv_pos, positions, window: int = 0,
     pmax = torch.where(torch.isneginf(pmax), 0.0, pmax)
     e = torch.exp(s - pmax)
     e = torch.where(valid, e, 0.0)
-    o = torch.einsum("bkgs,bskh->bkgh", e.to(vc.dtype).float(), vc.float())
+    ew = e * scales[1][:, None, None, :] if quant else e
+    o = torch.einsum("bkgs,bskh->bkgh",
+                     ew.to(torch.bfloat16 if quant else vc.dtype).float(),
+                     vc.float())
     o = o / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
-    return o.reshape(B, H, hd).to(vc.dtype)
+    return o.reshape(B, H, hd).to(q.dtype if quant else vc.dtype)
 
 
 # -------------------------------------------------------------- MLA paths ---

@@ -102,15 +102,17 @@ def flash_attention(
     causal: bool = True,
     q_offset: Optional[torch.Tensor] = None,  # absolute pos of q[:, 0]
     window: int = 0,                # sliding-window size (0 = full)
+    soft_cap: float = 0.0,          # scores -> cap * tanh(s / cap) (0 = off)
     scale: Optional[float] = None,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
 ) -> torch.Tensor:
     """Chunked online-softmax attention (GQA-aware), O(S) memory.
 
-    Scores and the running (m, l, o) are f32; the softmax weights are cast
-    to v's dtype before the PV product, as in the reference. Returns
-    (B, Sq, H, vd) in v's dtype."""
+    Scores and the running (m, l, o) are f32; the soft cap, when set,
+    applies after the scale and before the mask (`_flash_fwd`); the
+    softmax weights are cast to v's dtype before the PV product, as in the
+    reference. Returns (B, Sq, H, vd) in v's dtype."""
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     vd = v.shape[-1]
@@ -135,6 +137,8 @@ def flash_attention(
         for k0 in range(0, Sk, kv_chunk):
             kb, vb = kf[:, k0:k0 + kv_chunk], vf[:, k0:k0 + kv_chunk]
             s = torch.einsum("bqkgh,bskh->bkgqs", qb, kb) * scale
+            if soft_cap > 0.0:
+                s = soft_cap * torch.tanh(s / soft_cap)
             kpos = k0 + torch.arange(kb.shape[1], device=q.device)
             mask = torch.ones((B, qc, kb.shape[1]), dtype=torch.bool,
                               device=q.device)

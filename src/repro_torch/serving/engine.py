@@ -27,6 +27,11 @@ the prefill writes at positions 0..F-1 ahead of the prompt. The port's
 decode positions, page admission and finishing test count them; the
 reference's leave them out, so its first decode writes at position
 prompt_len + 1, inside the patches and prompt (ROADMAP.md §3).
+An encoder-decoder model's requests carry `enc_len` stub encoder frames
+each (`_stub_extras`), which the admission's prefill encodes into the
+slot's cross K/V; those are sized by the engine's fixed `enc_len` (at
+least 1) and left out of the page accounting, as in the reference, so
+every request must bring exactly `enc_len` frames.
 
 On the card the decode step is a CUDA graph (`DecodeGraph`), captured at
 the first round or by `precompile` (the reference jits it at its first
@@ -129,18 +134,24 @@ class ServingEngine:
     """Slot-based continuous batching over a fixed decode batch."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 8,
-                 s_max: int = 256, use_kernels: bool = False,
-                 page_tokens: int = 16, num_pages: Optional[int] = None,
-                 seed: int = 0, device=None, graphs: Optional[bool] = None):
+                 s_max: int = 256, enc_len: int = 0,
+                 use_kernels: bool = False, page_tokens: int = 16,
+                 num_pages: Optional[int] = None, seed: int = 0,
+                 device=None, graphs: Optional[bool] = None):
+        if cfg.enc_layers and enc_len < 1:
+            raise ValueError(f"{cfg.name} cross-attends to its requests' "
+                             "encoder frames: give the engine enc_len >= 1")
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
         self.max_slots = max_slots
         self.s_max = s_max
+        self.enc_len = enc_len
         self.use_kernels = use_kernels
         self.rng = np.random.default_rng(seed)
         # bf16 cache whatever the params' dtype, as in the reference engine
-        self.cache = MD.init_cache(cfg, max_slots, s_max, device=self.device)
+        self.cache = MD.init_cache(cfg, max_slots, s_max, enc_len,
+                                   device=self.device)
         self.metrics = EngineMetrics()
         # page accounting (Harli's allocator plugs in via set_usable), of
         # the tokens a slot holds: at most the ring's length when windowed
@@ -180,10 +191,11 @@ class ServingEngine:
     def try_admit(self, req: Request, prompt_tokens: np.ndarray,
                   extras: Optional[Dict] = None) -> bool:
         """Prefill `prompt_tokens` into a free slot. extras: per-request
-        inputs beside the tokens, such as a vision stub's "frontend" (F,
-        d) patch embeddings, which take positions 0..F-1 ahead of the
-        prompt: the page admission counts them, and so do the decode
-        positions and the finishing test."""
+        inputs beside the tokens: a vision stub's "frontend" (F, d) patch
+        embeddings, which take positions 0..F-1 ahead of the prompt (the
+        page admission counts them, and so do the decode positions and
+        the finishing test), or an encoder-decoder's "enc_frames"
+        (enc_len, d)."""
         front = 0 if not extras or "frontend" not in extras \
             else len(extras["frontend"])
         slot = next((i for i, s in enumerate(self.slots) if s is None), None)
@@ -199,7 +211,8 @@ class ServingEngine:
                                            device=self.device)}
         for k, v in (extras or {}).items():
             batch[k] = torch.as_tensor(v[None], device=self.device)
-        one_cache = MD.init_cache(self.cfg, 1, self.s_max, device=self.device)
+        one_cache = MD.init_cache(self.cfg, 1, self.s_max, self.enc_len,
+                                  device=self.device)
         logits, one_cache = MD.prefill(self.params, self.cfg, batch,
                                        one_cache,
                                        use_kernels=self.use_kernels)
@@ -319,10 +332,14 @@ class ServingEngine:
         return self.metrics
 
     def _stub_extras(self, req: Request) -> Optional[Dict]:
-        """A vision stub's patch embeddings for `req`, drawn from the
-        engine's rng after its prompt, as the reference draws them."""
+        """A vision stub's patch embeddings or an encoder-decoder's frame
+        embeddings for `req`, drawn from the engine's rng after its
+        prompt, as the reference draws them."""
         cfg = self.cfg
         if cfg.frontend == "vision" and cfg.frontend_tokens:
             return {"frontend": self.rng.normal(
                 size=(cfg.frontend_tokens, cfg.d_model)).astype(np.float32)}
+        if cfg.enc_layers:
+            return {"enc_frames": self.rng.normal(
+                size=(self.enc_len, cfg.d_model)).astype(np.float32)}
         return None

@@ -28,6 +28,14 @@ and HEAD drops the first F rows before the loss, so the units' loss is
 cannot store the front, and its HEAD would pair F + S - 1 rows with S - 1
 labels (ROADMAP.md §3).
 
+An encoder-decoder model trains on its microbatch's stub frames (the
+staged ring's "enc_frames", (n_stage, B, Se, d)): EMBED also runs the
+encoder on them and stores its output in the state's `enc_out` (B, Se,
+d) bf16, which every FWD and BWD unit's "dec" layer attends to, as in
+the reference (`repro/training/peft.py:101-103`, `:128-159`, `:223-227`).
+The encoder takes no adapter, so BWD's gradient reaches the layer input
+and its adapters, never `enc_out`.
+
 FWD units run without autograd and save each layer's input as a bf16
 residual. BWD units recompute their layer from that residual and call
 `torch.autograd.grad` with respect to (the layer input, that layer's
@@ -135,9 +143,11 @@ def front_tokens(cfg: ModelConfig) -> int:
 def init_ft_state(cfg: ModelConfig, pc: PeftConfig, params, seed: int,
                   staged: Dict[str, np.ndarray]) -> Dict[str, Any]:
     """staged: {"tokens": (n_stage, B, S), "labels": ..., "mask": ...,
-    ["frontend": (n_stage, B, F, d)]} from `data.Prefetcher.stacked()`,
-    copied to the params' device. `x` and the residuals hold F + S rows
-    (the reference sizes them S, and its EMBED fails on a frontend)."""
+    ["frontend": (n_stage, B, F, d)], ["enc_frames": (n_stage, B, Se,
+    d)]} from `data.Prefetcher.stacked()`, copied to the params' device.
+    `x` and the residuals hold F + S rows (the reference sizes them S, and
+    its EMBED fails on a frontend); an encoder-decoder model's state adds
+    `enc_out` (B, Se, d) bf16."""
     _, _, n_scan, _ = MD._plan(cfg)
     dev = params["embed"].device
     B, d = pc.micro_batch, cfg.d_model
@@ -146,9 +156,12 @@ def init_ft_state(cfg: ModelConfig, pc: PeftConfig, params, seed: int,
         raise ValueError(f"{cfg.name} trains on {F} stub patches per "
                          "sample: stage a 'frontend' of them "
                          "(DataConfig.frontend_tokens)")
+    if cfg.enc_layers and "enc_frames" not in staged:
+        raise ValueError(f"{cfg.name} trains on stub encoder frames: stage "
+                         "'enc_frames' (DataConfig.enc_frames)")
     S = F + pc.seq_len
     adapters = MD.init_adapters(cfg, seed, device=dev)
-    return {
+    state = {
         "adapters": adapters,
         "opt": adamw_init(adapters),
         "grads": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
@@ -164,8 +177,15 @@ def init_ft_state(cfg: ModelConfig, pc: PeftConfig, params, seed: int,
         "iter": 0,
         "consumed": 0,
     }
+    if cfg.enc_layers:
+        se = np.shape(staged["enc_frames"])[2]
+        state["enc_out"] = torch.zeros((B, se, d), dtype=RESIDUAL_DTYPE,
+                                       device=dev)
+    return state
 
 
+# the staged inputs EMBED (and EMBED_BWD) copies; HEAD copies the others
+FRONT_INPUTS = ("tokens", "frontend", "enc_frames")
 UNIT_KINDS = ("EMBED", "FWD", "HEAD", "BWD", "EMBED_BWD", "OPT")
 
 
@@ -176,7 +196,8 @@ class UnitEngine:
     (`core/colocation.py`) takes apart:
       prepare(state)   host side, outside any graph: a microbatch's EMBED
                        (and, with "pre" layers, its EMBED_BWD) copies its
-                       tokens from the staged ring (at the host's
+                       tokens (patches, frames) from the staged ring (at
+                       the host's
                        `data_idx`) into a fixed batch buffer, its HEAD the
                        labels and mask; OPT writes its step's lr and bias
                        corrections into a small f32 tensor (`hp`).
@@ -233,11 +254,11 @@ class UnitEngine:
         if kind in ("EMBED", "EMBED_BWD") and self.has_work(unit_idx):
             # EMBED_BWD recomputes the front on its microbatch's tokens
             # (the same ring entry: `data_idx` moves after it)
-            self._stage(state, [k for k in ("tokens", "frontend")
+            self._stage(state, [k for k in FRONT_INPUTS
                                 if k in state["data"]])
         elif kind == "HEAD":
             self._stage(state, [k for k in state["data"]
-                                if k not in ("tokens", "frontend")])
+                                if k not in FRONT_INPUTS])
         elif kind == "OPT":
             hp = torch.from_numpy(adamw_hparams(self.pc.opt,
                                                 state["opt"]["t"] + 1))
@@ -279,13 +300,16 @@ class UnitEngine:
                            preserve_rng_state=False) if remat else layer(x)
         return x
 
-    def _layer(self, i, x, lora):
+    def _layer(self, i, x, lora, state):
         # an MoE layer's aux loss is dropped, as the reference's units drop
         # it (`repro/training/peft.py:156`, `:224`): unlike `loss_fn`, the
         # units train on the CE alone
+        enc_out = state.get("enc_out")
         y, _, _ = MD.apply_layer(MD._layer(self.params["scan"], i), x,
                                  self.positions, self.cfg, self.scan_kind,
                                  mode="full", lora=lora, scale=self.scale,
+                                 enc_out=None if enc_out is None
+                                 else enc_out.to(x.dtype),
                                  use_kernels=self.use_kernels)
         return y
 
@@ -293,6 +317,9 @@ class UnitEngine:
         x = self._front([LR.as_pairs(ad) for ad in state["adapters"]["pre"]])
         state["x"].copy_(x)
         state["residuals"][0] = x
+        if "enc_out" in state:
+            state["enc_out"].copy_(MD._encode(self.params, self.cfg, {
+                "enc_frames": self.batch["enc_frames"]}))
 
     def _embed_bwd(self, state, _u):
         """The "pre" layers' adapter grads: the front recomputed on this
@@ -315,7 +342,7 @@ class UnitEngine:
     def _fwd(self, state, u):
         i = u - 1
         ad = LR.slice_adapters(state["adapters"]["scan"], i)
-        y = self._layer(i, state["x"], ad)
+        y = self._layer(i, state["x"], ad, state)
         state["x"].copy_(y)
         state["residuals"][i + 1] = y
 
@@ -361,7 +388,7 @@ class UnitEngine:
                       state["adapters"]["scan"])
         leaves = tree_leaves(ad)
         with torch.enable_grad():
-            y = self._layer(i, x_in, LR.as_pairs(ad))
+            y = self._layer(i, x_in, LR.as_pairs(ad), state)
             grads = torch.autograd.grad(
                 y, [x_in] + leaves, grad_outputs=state["x"].to(y.dtype))
         for acc, g in zip(tree_leaves(state["grads"]["scan"]), grads[1:]):

@@ -94,7 +94,7 @@ def test_adapter_raises_where_the_kernel_does_not_apply():
             torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="window"):    # a ring is <= window
         tops.decode_attention(*args, window=8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no int8 path"):
         tops.decode_attention(*args, scales=(torch.ones(1, 64),) * 2)
 
 

@@ -30,7 +30,12 @@ wrapped ring too) and phi-3-vision's hd 96, K2 at both models'
 projections on inputs at their init scales, the hybrid's unit graphs'
 K2 launches by kind, and the graphed decode step, rounds and engine on
 both smoke configs (the hybrid at 5 layers, so with "post" layers; the
-vision stub with its patches). Each skips
+vision stub with its patches); K1 at seamless-m4t-large-v2's hd 64 (16
+heads, g 1), K2 at its 1024 <-> 8192 projections, and the graphed decode
+step, rounds and engine on its smoke config (cross K/V in the cache,
+EMBED running the encoder) and on llama3's with an int8 KV cache (every
+decode through the counted oracle, no K1), and two steps of
+`launch/train.py` on the encoder-decoder. Each skips
 with a reason where no CUDA device is present. This file
 imports no JAX (the machine with the card has none), so run it there with
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -76,6 +81,8 @@ CASES = [
     (8, 10, 1, 256, 64, 32, torch.bfloat16),
     (8, 10, 1, 256, 64, 32, torch.float32),
     (8, 32, 32, 96, 64, 18, torch.bfloat16),    # phi-3-vision, hd 96, g 1
+    (8, 16, 16, 64, 64, 16, torch.bfloat16),    # seamless, hd 64, g 1
+    (8, 16, 16, 64, 64, 16, torch.float32),
 ]
 
 
@@ -256,12 +263,14 @@ def test_k2_kernel_matches_plain(M, K, N, r, dtype, trans):
 # at the training path's s = 2, one f32 rounding per scaling (relative 6e-8)
 # at a scale that is not a power of two, far below the output's bf16
 # rounding; s = 0 skips xa @ B. Both W forms, the tolerances above.
-# recurrentgemma-2b's q/o, k/v, gate/up, down and phi-3-vision's q/k/v/o,
-# gate/up, down at M 2048 (a 2 x 1024 microbatch), forward and dx form
+# recurrentgemma-2b's q/o, k/v, gate/up, down, phi-3-vision's q/k/v/o,
+# gate/up, down and seamless-m4t-large-v2's q/k/v/o, gate/up, down at M
+# 2048 (a 2 x 1024 microbatch), forward and dx form
 K2_MODEL_CASES = [(2048, K, N, trans)
                   for K, N in ((2560, 2560), (2560, 256), (2560, 7680),
                                (7680, 2560), (3072, 3072), (3072, 8192),
-                               (8192, 3072))
+                               (8192, 3072), (1024, 1024), (1024, 8192),
+                               (8192, 1024))
                   for trans in (False, True)]
 
 
@@ -488,11 +497,16 @@ def test_ssm_prefill_through_k3_matches_plain():
 
 
 # ------------------------------------------------------- CUDA graphs ----
+ENC_LEN = 6         # the encoder-decoder's stub frames per request
+
+
 def _graph_cfg(arch):
     """The smoke width, LoRA rank 8 so that the units' adapted projections
     take K2's wgmma kernel (the main path's); the hybrid at 5 layers, so
-    that 2 RG-LRU layers follow its superblock in "post"."""
-    cfg = smoke_config(arch)
+    that 2 RG-LRU layers follow its superblock in "post"; "<arch> int8"
+    with an int8 KV cache (kv_quant)."""
+    arch, _, cache = arch.partition(" ")
+    cfg = dataclasses.replace(smoke_config(arch), kv_quant=cache == "int8")
     if cfg.family == "hybrid":
         cfg = dataclasses.replace(cfg, num_layers=5)
     return dataclasses.replace(cfg, lora=dataclasses.replace(cfg.lora,
@@ -501,10 +515,11 @@ def _graph_cfg(arch):
 
 def _staged(cfg, seed=1):
     """The finetune ring of 2 x 32-token microbatches (with the vision
-    stub's patches where the model has them)."""
+    stub's patches or 16 encoder frames where the model has them)."""
     return Prefetcher(SyntheticCorpus(DataConfig(
         cfg.vocab_size, 32, 2, seed=seed,
-        frontend_tokens=TP.front_tokens(cfg), d_model=cfg.d_model)
+        frontend_tokens=TP.front_tokens(cfg),
+        enc_frames=16 if cfg.enc_layers else 0, d_model=cfg.d_model)
     ).batches(), 2).stacked()
 
 
@@ -526,20 +541,25 @@ def _served_cache(cfg, params, dev, lengths=(5, 17, 64, 1)):
     as the engine's admissions fill it, and the next round's inputs. A
     sliding-window or hybrid model (smoke window 64) gets prompts past
     its window, so its rings have wrapped; a vision-stub model's prompts
-    follow their patches."""
+    follow their patches; an encoder-decoder's come with ENC_LEN
+    frames."""
     if cfg.window or cfg.family == "hybrid":
         lengths = (5, 17, 70, 100)
     front = TP.front_tokens(cfg)
-    cache = MD.init_cache(cfg, len(lengths), 128, device=dev)
+    enc_len = ENC_LEN if cfg.enc_layers else 0
+    cache = MD.init_cache(cfg, len(lengths), 128, enc_len, device=dev)
     gen = torch.Generator(dev).manual_seed(4)
     last = []
     for b, n in enumerate(lengths):
-        one = MD.init_cache(cfg, 1, 128, device=dev)
+        one = MD.init_cache(cfg, 1, 128, enc_len, device=dev)
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, n),
                                          device=dev, generator=gen)}
         if front:
             batch["frontend"] = torch.randn((1, front, cfg.d_model),
                                             device=dev, generator=gen)
+        if enc_len:
+            batch["enc_frames"] = torch.randn((1, enc_len, cfg.d_model),
+                                              device=dev, generator=gen)
         logits, one = MD.prefill(params, cfg, batch, one, use_kernels=True)
         for part in ("pre", "post"):
             for dst, src in zip(tree_leaves(cache[part]),
@@ -553,16 +573,20 @@ def _served_cache(cfg, params, dev, lengths=(5, 17, 64, 1)):
     return cache, torch.cat(last), pos
 
 
+GRAPH_ARCHS = ["llama3-8b", "mamba2-780m", "mixtral-8x7b", "h2o-danube-1.8b",
+               "deepseek-v3-671b", "recurrentgemma-2b", "phi-3-vision-4.2b",
+               "seamless-m4t-large-v2", "llama3-8b int8"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b",
-                                  "h2o-danube-1.8b", "deepseek-v3-671b",
-                                  "recurrentgemma-2b", "phi-3-vision-4.2b"])
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
 def test_graphed_decode_step_equals_eager(arch):
     """The decode step captured as a CUDA graph (kernels on) gives the
     eager step's logits, greedy tokens and cache bit for bit over three
     rounds; capturing leaves the cache as it was; each replay counts its
-    K1 launches (one per layer on llama3, none on mamba2); a cache other
-    than the captured one is refused."""
+    K1 launches (one per layer on llama3, none on mamba2 or an int8
+    cache) and its int8 oracle decodes; a cache other than the captured
+    one is refused."""
     dev = _card()
     cfg = _graph_cfg(arch)
     params = MD.init_params(cfg, 0, device=dev)
@@ -572,14 +596,16 @@ def test_graphed_decode_step_equals_eager(arch):
     torch.cuda.synchronize()
     _assert_same(cache, saved)
     cache_e = _clone(cache)
-    per_round = 0 if cfg.mla else len(cfg.attn_layer_indices())
+    n_attn = 0 if cfg.mla else len(cfg.attn_layer_indices())
+    per_round = 0 if cfg.kv_quant else n_attn
     for _ in range(3):
         logits_e, _ = MD.decode_step(params, cfg, tok, pos, cache_e,
                                      use_kernels=True)
-        before = K.LAUNCHES
+        before = (K.LAUNCHES, A.INT8_ORACLE_CALLS)
         logits_g = graph(tok, pos, cache)
         torch.cuda.synchronize()
-        assert K.LAUNCHES - before == per_round
+        assert (K.LAUNCHES - before[0], A.INT8_ORACLE_CALLS - before[1]) \
+            == (per_round, n_attn - per_round)
         assert torch.equal(logits_g, logits_e)
         assert torch.equal(graph.next_tokens,
                            logits_e.argmax(-1).to(torch.int32))
@@ -591,7 +617,8 @@ def test_graphed_decode_step_equals_eager(arch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b",
-                                  "recurrentgemma-2b", "phi-3-vision-4.2b"])
+                                  "recurrentgemma-2b", "phi-3-vision-4.2b",
+                                  "seamless-m4t-large-v2", "llama3-8b int8"])
 def test_graphed_rounds_equal_eager_rounds(arch):
     """Co-located rounds replayed from CUDA graphs (decode, then k unit
     graphs) equal eager rounds (decode_step, then k unit_step calls) bit
@@ -677,9 +704,7 @@ def test_replays_count_their_captured_launches():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "mixtral-8x7b",
-                                  "h2o-danube-1.8b", "deepseek-v3-671b",
-                                  "recurrentgemma-2b", "phi-3-vision-4.2b"])
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
 def test_graphed_engine_tokens_equal_eager_engine(arch):
     """An engine replaying its decode graph (the default on the card) and
     one running eager rounds give the same greedy tokens round by round
@@ -688,6 +713,7 @@ def test_graphed_engine_tokens_equal_eager_engine(arch):
     cfg = _graph_cfg(arch)
     params = MD.init_params(cfg, 0, device=dev)
     engines = [ServingEngine(cfg, params, max_slots=4, s_max=128,
+                             enc_len=ENC_LEN if cfg.enc_layers else 0,
                              use_kernels=True, device=dev, graphs=g)
                for g in (None, False)]
     assert engines[0].graphs and not engines[1].graphs
@@ -696,7 +722,7 @@ def test_graphed_engine_tokens_equal_eager_engine(arch):
         prompt = rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
         reqs = [Request(rid=i, arrival=0.0, prompt_len=n, max_new_tokens=12)
                 for _ in engines]
-        extras = engines[0]._stub_extras(reqs[0])   # the same patches
+        extras = engines[0]._stub_extras(reqs[0])   # the same patches/frames
         for eng, req in zip(engines, reqs):
             assert eng.try_admit(req, prompt, extras)
     rounds = 0
@@ -816,22 +842,24 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "seamless-m4t-large-v2"])
 @pytest.mark.parametrize("units", [False, True])
-def test_train_entry_point_runs_k2_on_the_card(units, tmp_path):
+def test_train_entry_point_runs_k2_on_the_card(units, arch, tmp_path):
     """Two steps of `launch/train.py --use-kernels` at smoke width on the
     card: every adapted projection through K2 (the forward, the remat
     recompute and the backward's dx in one-shot mode, less layer 0's
     q/k/v; 7 per FWD and 14 per BWD unit with --layer-units, replayed from
     CUDA graphs after the capture's warm-up has run one iteration for
-    real), no plain call, and a finite loss."""
+    real), no plain call, and a finite loss; the encoder-decoder's
+    encoder and cross-attention take no adapter, so no K2 launch."""
     from repro_torch.launch import train
     _card()
-    cfg = smoke_config("llama3-8b")
+    cfg = smoke_config(arch)
     n = cfg.num_layers * len(cfg.lora.targets)
     before = (K2.LAUNCHES, K2.PLAIN_CALLS)
-    out = train.main(["--smoke", "--device", "cuda", "--steps", "2",
-                      "--batch", "2", "--seq", "32", "--use-kernels",
-                      "--ckpt-dir", str(tmp_path)]
+    out = train.main(["--arch", arch, "--smoke", "--device", "cuda",
+                      "--steps", "2", "--batch", "2", "--seq", "32",
+                      "--use-kernels", "--ckpt-dir", str(tmp_path)]
                      + (["--layer-units"] if units else []))
     torch.cuda.synchronize()
     per_step = 3 * n if units else 3 * n - 3

@@ -1,6 +1,7 @@
 """Hygiene of the port: it imports neither JAX nor the JAX package, its
-entry points refuse to run without a card unless asked for the CPU, configs
-it does not run yet raise, and interop round trips are exact."""
+entry points refuse to run without a card unless asked for the CPU, every
+shipped config runs with and without an int8 KV cache, and interop round
+trips are exact."""
 
 import ast
 import dataclasses
@@ -74,24 +75,35 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         assert out["opt"]["t"] == 1
 
 
-# the sliding-window, MoE, MLA, hybrid and vision-stub configurations
-# run; with an int8 KV cache (ROADMAP.md §1 item 5.7) they still raise
-STILL_UNPORTED = {"mixtral-8x7b": dict(kv_quant=True),
-                  "h2o-danube-1.8b": dict(kv_quant=True),
-                  "deepseek-v3-671b": dict(kv_quant=True),
-                  "recurrentgemma-2b": dict(kv_quant=True),
-                  "phi-3-vision-4.2b": dict(kv_quant=True)}
-
-
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b",
-                                  "recurrentgemma-2b",
-                                  "seamless-m4t-large-v2",
-                                  "phi-3-vision-4.2b", "h2o-danube-1.8b"])
-def test_unported_families_raise(arch):
-    cfg = dataclasses.replace(tconfigs.smoke_config(arch),
-                              **STILL_UNPORTED.get(arch, {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TMD.init_params(cfg, device="cpu")
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("arch", sorted(tconfigs._MODULES))
+def test_every_family_runs(arch, kv_quant):
+    """Every shipped config's smoke sibling, with and without kv_quant:
+    a prefill of 16 tokens (after the stub patches or with the stub
+    encoder frames where the model has them) and one decode step through
+    the kernels' wrappers give finite logits."""
+    cfg = dataclasses.replace(tconfigs.smoke_config(arch), kv_quant=kv_quant)
+    params = TMD.init_params(cfg, device="cpu")
+    enc_len = 4 if cfg.enc_layers else 0
+    cache = TMD.init_cache(cfg, 2, 96, enc_len=enc_len, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                     generator=gen)}
+    if cfg.enc_layers:
+        batch["enc_frames"] = torch.randn((2, enc_len, cfg.d_model),
+                                          generator=gen)
+    front = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+    if front:
+        batch["frontend"] = torch.randn((2, front, cfg.d_model),
+                                        generator=gen)
+    logits, _ = TMD.prefill(params, cfg, batch, cache, use_kernels=True)
+    logits2, _ = TMD.decode_step(
+        params, cfg, logits.argmax(-1).to(torch.int32),
+        torch.full((2,), front + 16, dtype=torch.int32), cache,
+        use_kernels=True)
+    for lg in (logits, logits2):
+        assert lg.shape == (2, cfg.vocab_size)
+        assert torch.isfinite(lg.float()).all()
 
 
 def test_deepseek_runs():
