@@ -217,6 +217,25 @@ Then the seamless objects are freed:
      logits from an int8 and a bf16 cache on 8 prompts of 300 tokens,
      within 5 % of the largest |logit|; 16 requests served co-located with
      the predictor fit from the cost model (no profiling).
+ 19. the recompute-backward flash attention (`layers.flash_attention`, an
+     autograd Function whose backward recomputes the softmax blocks from
+     the saved log-sum-exp) against `flash_attention_plain` (its forward
+     under plain autograd) at llama3-8b's training shape (B 2, S 1024, 32
+     heads / 8 KV of hd 128) and deepseek-v3's dense MLA shape (128 heads,
+     qk 192, v 128), bf16: o, dq, dk, dv at 3e-2 of the largest |value|,
+     forward + backward timed (CUDA events, median of 30), the memory
+     each allocates above its inputs, and the forward alone under no_grad.
+     Phases 6, 12 and 14-17 print each unit kind's graphed time and the
+     peaks; EMBED_BWD recomputes no layer, so K2 launches twice for each
+     adapted projection of a "pre" layer there.
+ 20. the mesh layout layer on the one card: a 1x1 ("data", "model")
+     DeviceMesh on cuda (NCCL, world size 1); phase 13's checkpoint
+     restored onto it with `adapter_specs`, bit-equal to the single-card
+     restore; llama3-8b's weights laid out by `param_specs`; one one-shot
+     train step under `use_mesh` against the plain step (kernels off,
+     none launched): loss, adapters and AdamW moments bit-equal, only the
+     loss's `gather` run replicated; times printed. Nothing here measures a layout over
+     more than one card.
 The second line from the end lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repository
 around it, the script exits nonzero and prints no result.
@@ -714,20 +733,21 @@ def k2_projections(cfg, kind):
 def k2_per_unit(cfg):
     """K2 launches of one unit by kind, from the layer plan: one per
     adapted projection of a layer in FWD, two (forward and dx) in BWD; the
-    "pre" layers' in EMBED (forward) and EMBED_BWD (forward, the recompute
-    of its per-layer checkpoint and dx, less the first layer's projections
-    whose input depends on no adapter: q/k/v of GQA, q of MLA); the "post"
-    layers' twice (forward, dx) in HEAD; none in OPT. llama3: FWD 7, BWD
-    14 (q/k/v/o/gate/up/down); mixtral: 4 and 8 (q/k/v/o: the routed
-    experts take no adapters); deepseek-v3 at 3 dense + 2 MoE layers:
-    EMBED 15, FWD 5, BWD 10, EMBED_BWD 44; recurrentgemma-2b: FWD 13 (2 x
-    gate/up/down + 7), BWD 26, HEAD 12 (its 2 post RG-LRU layers)."""
+    "pre" layers' in EMBED (forward) and EMBED_BWD (forward and dx: no
+    per-layer checkpoint recomputes them, less the first layer's
+    projections whose input depends on no adapter: q/k/v of GQA, q of
+    MLA); the "post" layers' twice (forward, dx) in HEAD; none in OPT.
+    llama3: FWD 7, BWD 14 (q/k/v/o/gate/up/down); mixtral: 4 and 8
+    (q/k/v/o: the routed experts take no adapters); deepseek-v3 at 3 dense
+    + 2 MoE layers: EMBED 15, FWD 5, BWD 10, EMBED_BWD 29 (44 with a
+    per-layer checkpoint); recurrentgemma-2b: FWD 13 (2 x gate/up/down +
+    7), BWD 26, HEAD 12 (its 2 post RG-LRU layers)."""
     from repro_torch.models import model as MD
     pre, scan_kind, _, post = MD._plan(cfg)
     n = k2_projections(cfg, scan_kind)
     n_pre = sum(k2_projections(cfg, kind) for kind in pre)
     return {"FWD": n, "BWD": 2 * n, "EMBED": n_pre,
-            "EMBED_BWD": 3 * n_pre - first_layer_no_dx(cfg) if pre else 0,
+            "EMBED_BWD": 2 * n_pre - first_layer_no_dx(cfg) if pre else 0,
             "HEAD": 2 * sum(k2_projections(cfg, kind) for kind in post)}
 
 
@@ -2780,8 +2800,14 @@ def phase13_train(device="cuda", smoke=False):
         f"{1e3 * cm.checkpoint_time():.3f} ms ({trainable:,} x (2 + 8) bytes "
         f"= {trainable * 10 / 1e6:.1f} MB over "
         f"{cm.inst.host_dma_bw / 1e9:.0f} GB/s)")
-    shutil.rmtree(root, ignore_errors=True)
+    # the uninterrupted run's checkpoints stay for phase 20
+    for sub in ("b", "t"):
+        shutil.rmtree(root / sub, ignore_errors=True)
     return {"train_oneshot": k2_oneshot, "train_units": k2_units}
+
+
+# the checkpoints of phase 13's uninterrupted run, which phase 20 restores
+PHASE13_CKPT = ROOT / "build" / "phase13" / "a"
 
 
 # deepseek-v3 at 3 dense + 2 MoE layers, reckoned before the run in bf16
@@ -3877,6 +3903,245 @@ def phase18_llama3_int8(dev, served):
         "colocated_serve_llama3_int8": k2})
 
 
+# ------------------------------------------- 19. the flash attention ----
+# bf16 tolerance of the gradients, relative to each tensor's largest
+# |value| (tests/test_kernels.py holds bf16 at 2e-2 to 3e-2)
+FLASH_TOL = 3e-2
+FLASH_SHAPES = {
+    "llama3-8b": dict(B=2, S=1024, H=32, KV=8, hd=128, vd=128),
+    "deepseek-v3 dense MLA": dict(B=2, S=1024, H=128, KV=128, hd=192,
+                                  vd=128),
+}
+
+
+def flash_run(fn, q, k, v, do, scale):
+    """Forward and backward of one flash attention: (o, dq, dk, dv)."""
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    o = fn(qq, kk, vv, causal=True, scale=scale)
+    o.backward(do)
+    return o.detach(), qq.grad, kk.grad, vv.grad
+
+
+def flash_peak_bytes(fn, args):
+    """The most memory one forward + backward allocates above what is
+    allocated before it (its inputs)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    flash_run(fn, *args)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase19_flash(dev):
+    """The recompute-backward flash attention (`layers.flash_attention`,
+    an autograd Function) against `flash_attention_plain` (the same
+    forward under plain autograd) at llama3-8b's training shape and at
+    deepseek-v3's dense MLA shape (qk 192, v 128), bf16, causal: o and
+    (dq, dk, dv) held at FLASH_TOL, forward + backward timed by CUDA
+    events (median of 30, L2 overwritten), the memory each allocates above
+    its inputs, and the forward alone under no_grad (the serving path).
+    Plain torch both: no TPU kernel covers this function."""
+    from repro_torch.models import layers as L
+    out = {}
+    for label, s in FLASH_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(19)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+        B, S, H, KV, hd, vd = (s[k] for k in ("B", "S", "H", "KV", "hd",
+                                              "vd"))
+        args = (rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, vd),
+                rnd(B, S, H, vd), hd ** -0.5)
+        got = flash_run(L.flash_attention, *args)
+        ref = flash_run(L.flash_attention_plain, *args)
+        errs = {name: float((a.float() - b.float()).abs().max()
+                            / b.float().abs().max())
+                for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref)}
+        same_o = torch.equal(got[0], ref[0])
+        del got, ref
+        mem = {name: flash_peak_bytes(fn, args)
+               for name, fn in (("function", L.flash_attention),
+                                ("plain", L.flash_attention_plain))}
+        ms = {name: time_ms(lambda fn=fn: flash_run(fn, *args))
+              for name, fn in (("function", L.flash_attention),
+                               ("plain", L.flash_attention_plain))}
+        q, k, v, _, scale = args
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: L.flash_attention(q, k, v, causal=True,
+                                                       scale=scale))
+        log(f"flash {label}: B {B} S {S} H {H} KV {KV} qk {hd} v {vd} bf16 "
+            f"causal; the Function against flash_attention_plain: max "
+            f"|diff| / max |plain| " + ", ".join(
+                f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (tolerance {FLASH_TOL}; o bit-equal {same_o}); forward + "
+            f"backward ms_median Function {ms['function']:.3f}, plain "
+            f"{ms['plain']:.3f} (ratio {ms['function'] / ms['plain']:.3f}); "
+            f"allocated above the inputs: Function "
+            f"{mem['function'] / 1e9:.3f} GB, plain {mem['plain'] / 1e9:.3f} "
+            f"GB; forward alone under no_grad {fwd_ms:.3f} ms")
+        if any(e > FLASH_TOL for e in errs.values()):
+            raise AssertionError(f"flash {label}: the Function's output or "
+                                 "gradients disagree with plain autograd's")
+        out[label] = dict(errs=errs, ms=ms, mem=mem, fwd_ms=fwd_ms)
+        del args
+    return out
+
+
+# ------------------------------------------ 20. the mesh layout layer ----
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase20_mesh(dev):
+    """The layout layer on the one card: a 1x1 ("data", "model") mesh on
+    cuda (NCCL, world size 1); phase 13's checkpoint (adapters and AdamW
+    state) restored onto it with `adapter_specs` against the single-card
+    restore, leaf by leaf and bit for bit; llama3-8b's weights laid out
+    by `param_specs` (`reshard`: the checkpoint holds no weights); one
+    one-shot train step (remat, kernels off, micro-batch 2 x 1024) under
+    `use_mesh` against the same step on plain tensors: loss, adapters and
+    the AdamW moments (which carry the gradient) bit-equal, as one rank's
+    collectives are the identity (the reference's sharded-step bound,
+    adapters atol 5e-3 and rtol 5e-2, is printed beside them), only the
+    loss's `gather` run replicated, and no kernel launched. Nothing here measures a layout over more than
+    one card."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import partitioning as PT
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.fault_tolerance import (CheckpointManager,
+                                                         reshard)
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as MD
+    from repro_torch.training import peft as P
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_leaves
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"          # a CPU rehearsal runs on gloo
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", dev.index or 0)
+                            if cuda else None)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type=dev.type)
+        cfg = get_config("llama3-8b")
+        adapters = MD.init_adapters(cfg, 1, device=dev)
+        template = {"adapters": adapters, "opt": adamw_init(adapters)}
+        ad_specs = PT.adapter_specs(cfg, adapters, mesh)
+        specs = {"adapters": ad_specs,
+                 "opt": {"m": ad_specs, "v": ad_specs, "t": SH.Spec()}}
+        mgr = CheckpointManager(PHASE13_CKPT)
+        t0 = time.perf_counter()
+        single = mgr.restore(template)
+        torch.cuda.synchronize()
+        t_single = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_mesh = mgr.restore(template, mesh=mesh, specs=specs)
+        torch.cuda.synchronize()
+        t_mesh = time.perf_counter() - t0
+        pairs = list(zip(tree_leaves(single), tree_leaves(on_mesh)))
+        equal = all(a == b if isinstance(a, int) else
+                    torch.equal(a, b.full_tensor()) for a, b in pairs)
+        n_dt = sum(1 for _, b in pairs if hasattr(b, "placements"))
+        log(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+            f"{mesh.device_type} ({dist.get_backend()}, world size 1); "
+            f"phase 13's step-"
+            f"{mgr.latest_step()} checkpoint restored onto it with "
+            f"adapter_specs in {t_mesh:.3f} s ({n_dt} leaves as DTensors) "
+            f"and on the card alone in {t_single:.3f} s: bit-equal leaf by "
+            f"leaf {equal}")
+        if not equal or n_dt == 0:
+            raise AssertionError("the restore onto the mesh differs from the "
+                                 "single-card restore")
+
+        params = MD.init_params(cfg, 0, device=dev)
+        p_sh = reshard(params, mesh, PT.param_specs(cfg, params, mesh))
+        rng = np.random.default_rng(20)
+        batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                 size=(2, 1024)),
+                                    dtype=torch.int32, device=dev)
+                 for k in ("tokens", "labels")}
+        b_sh = PT.to_named(batch, PT.batch_specs(batch, mesh), mesh)
+        step = P.make_train_step(cfg, AdamWConfig(lr=1e-3), remat=True)
+        times = {}
+        for mode in ("plain", "mesh", "mesh", "plain"):
+            reset_kernel_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "plain":
+                res_p = step(params, single["adapters"], single["opt"],
+                             batch)
+            else:
+                SH.FALLBACKS.clear()
+                with SH.use_mesh(mesh):
+                    res_m = step(p_sh, on_mesh["adapters"], on_mesh["opt"],
+                                 b_sh)
+            torch.cuda.synchronize()
+            times.setdefault(mode, []).append(time.perf_counter() - t0)
+            if any(kernel_counts().values()):
+                raise AssertionError(f"the {mode} step launched a kernel")
+        loss_p = float(res_p[2]["loss"])
+        loss_m = float(res_m[2]["loss"].full_tensor())
+        excess = 0.0
+        bits = {"loss": loss_m == loss_p}
+        for a, b in zip(tree_leaves(res_p[0]), tree_leaves(res_m[0])):
+            b = b.full_tensor()
+            bits["adapters"] = bits.get("adapters", True) and \
+                torch.equal(a, b)
+            excess = max(excess, float(((a - b).abs()
+                                        - 5e-2 * b.abs()).max()))
+        # the AdamW moments carry the gradient (m = 0.1 g, v = 1e-3 g^2 of
+        # the clipped g after one step): each leaf's worst |diff| over its
+        # largest |value|
+        moment_rel = {}
+        for key in ("m", "v"):
+            rel, same = 0.0, True
+            for a, b in zip(tree_leaves(res_p[1][key]),
+                            tree_leaves(res_m[1][key])):
+                b = b.full_tensor()
+                same &= torch.equal(a, b)
+                top = float(a.abs().max())
+                diff = float((a - b).abs().max())
+                rel = max(rel, diff / top if top > 0 else diff)
+            bits[key], moment_rel[key] = same, rel
+        log(f"mesh: one {cfg.name} train step (micro-batch 2 x 1024, remat, "
+            f"kernels off) under use_mesh on the laid-out weights, adapters"
+            f" and batch against the step on plain tensors: loss "
+            f"{loss_m:.6f} vs {loss_p:.6f}; bit-equal {bits} (adapters' max "
+            f"|diff| - 5e-2 |plain| = {excess:.3e}, bound 5e-3; the "
+            f"moments' worst |diff| / max |plain| m {moment_rel['m']:.3e}, "
+            f"v {moment_rel['v']:.3e}); ops run replicated by the fallback "
+            f"{dict(SH.FALLBACKS)}; step s plain "
+            f"{[round(t, 3) for t in times['plain']]}, on the mesh "
+            f"{[round(t, 3) for t in times['mesh']]}; no kernel launched. "
+            f"Nothing here measures a layout over more than one card: the "
+            f"machine has one.")
+        # on one rank every collective is the identity, so the step on the
+        # mesh computes what the plain step does, bit for bit
+        if not all(bits.values()) or excess > 5e-3:
+            raise AssertionError("the step on the mesh differs from the "
+                                 "plain step")
+        if set(SH.FALLBACKS) != {"gather"}:
+            raise AssertionError(f"the ops run replicated are "
+                                 f"{dict(SH.FALLBACKS)}, not the loss's "
+                                 f"gather alone")
+        return {"restore_bit_equal": equal, "loss": (loss_p, loss_m),
+                "times": times}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(PHASE13_CKPT.parent, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3993,7 +4258,19 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     int8 = phase18_llama3_int8(dev, llama.pop("served"))
-    log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s; whole run "
+    log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    phase19_flash(dev)
+    log(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    phase20_mesh(dev)
+    log(f"phase 20 took {time.perf_counter() - t_phase:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     llama["k1"]["launches_by_path"].update(serve_danube=danube["launches"],
                                            **mixtral["k1"],

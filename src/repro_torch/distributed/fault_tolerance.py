@@ -28,9 +28,12 @@ Two differences from the reference, both repairs:
     is writing (its `train.py` does both at the last step) races on the
     same temporary directory.
 
-`reshard` and the `mesh`/`specs` arguments of `restore` are left out: they
-lay a tree out over a device mesh (ROADMAP.md §1 item 6). `restore` puts
-each tensor on its template's device, in its template's dtype.
+`restore` puts each tensor on its template's device, in its template's
+dtype; with a `mesh` and a spec tree (`partitioning.param_specs`, ...) it
+lays each tensor out as a DTensor over that mesh instead, which may differ
+from the mesh that saved (elastic restore after a lost host). `reshard`
+lays a live tree out over a (new) mesh the same way. The on-disk format
+is the same either way.
 
 Straggler mitigation is the reference's, copied: rounds that overrun a
 robust deadline suppress the finetune quantum (finetune work is the shock
@@ -50,6 +53,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.tree import tree_map
 
 # the dtypes numpy cannot (de)serialize, by their manifest names
 _EXOTIC = {"bfloat16": torch.bfloat16,
@@ -212,10 +217,14 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, template, step: Optional[int] = None):
+    def restore(self, template, step: Optional[int] = None, mesh=None,
+                specs=None):
         """The tree of `template`'s structure from a committed step (the
         latest by default): tensors on their template's device and dtype,
-        ints where the template has ints, numpy arrays elsewhere."""
+        ints where the template has ints, numpy arrays elsewhere. With a
+        `mesh`, each tensor is then laid out as a DTensor over it by its
+        leaf of `specs` (a tree of `sharding.Spec`; replicated where
+        `specs` is None), each rank keeping its shards."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoints in {self.dir}")
@@ -223,7 +232,24 @@ class CheckpointManager:
         manifest = json.loads((d / "manifest.json").read_text())
         flat = {path: _from_saved(np.load(d / info["file"]), info["dtype"])
                 for path, info in manifest["leaves"].items()}
-        return _unflatten(template, flat)
+        tree = _unflatten(template, flat)
+        return tree if mesh is None else reshard(tree, mesh, specs)
+
+
+def reshard(tree, mesh, specs=None):
+    """Elastic re-layout of a tree onto a (new) mesh: every tensor leaf,
+    the same full value on every rank (a DTensor is gathered first), laid
+    out by its leaf of `specs` (replicated where `specs` is None); ints
+    and numpy arrays stay as they are."""
+    from repro_torch.distributed import partitioning as PT
+    from repro_torch.distributed.sharding import Spec
+
+    def full(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+    tree = tree_map(full, tree)
+    if specs is None:
+        specs = tree_map(lambda _: Spec(), tree)
+    return PT.to_named(tree, specs, mesh)
 
 
 # -------------------------------------------------------------- stragglers --

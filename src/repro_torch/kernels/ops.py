@@ -13,19 +13,34 @@ the kernel cannot compute raises: an int8 cache (`scales`), which K1
 cannot read and `attention.attn_decode` sends to the oracle before this
 adapter is reached (the reference's adapter takes the scales and ignores
 them). `ssd_scan` is the
-forward-only SSD scan kernel's wrapper itself, with the contract of
+forward-only SSD scan kernel's wrapper with the contract of
 `models/ssm.py::ssd_chunked`; unlike
 `repro/kernels/ops.py::ssd_scan` it pads no ragged tail (the kernel reads
 those rows as zeros) and has no head-block loop (TPU blocking).
+
+The kernels take local tensors: a DTensor (the sharded path,
+`distributed/sharding.py`, which runs with the kernels off, as the
+reference's sharded cells do) raises here.
 """
 
 from __future__ import annotations
+
+import sys
 
 import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import lora_matmul as _lm
 from repro_torch.kernels import ssd_scan as _ssd
+
+
+def _local_only(*tensors) -> None:
+    """Raise if a DTensor reaches a kernel (none exists unless
+    `torch.distributed.tensor` was imported)."""
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is not None and any(isinstance(t, dt.DTensor) for t in tensors):
+        raise TypeError("a DTensor reached a CUDA kernel's wrapper: the "
+                        "sharded path runs with use_kernels=False")
 
 
 def decode_attention(q, kc, vc, kv_pos, positions, window: int = 0,
@@ -42,6 +57,7 @@ def decode_attention(q, kc, vc, kv_pos, positions, window: int = 0,
     order, and RoPE was applied before the write, so the kernel reads the
     first min(p + 1, S) slots. q is read in the cache's dtype and the
     output is in the cache's dtype, as `decode_attn_ref`'s is."""
+    _local_only(q, kc, vc, kv_pos, positions)
     if scales is not None and scales[0] is not None:
         raise ValueError(
             "K1 has no int8 path (the reference's kernel has none either): "
@@ -70,12 +86,15 @@ def decode_attention(q, kc, vc, kv_pos, positions, window: int = 0,
 def lora_matmul(x, w, a, b, scale: float):
     """x: (..., K); w: (K, N); a: (K, r); b: (r, N) -> (..., N), through
     `lora_matmul.LoRAMatmul` (gradients for x, a and b)."""
+    _local_only(x, w, a, b)
     lead = x.shape[:-1]
     y = _lm.LoRAMatmul.apply(x.reshape(-1, x.shape[-1]).contiguous(), w, a,
                              b, float(scale))
     return y.reshape(*lead, w.shape[1])
 
 
-# K3 as it stands: `ssd_scan.ssd_scan` already keeps `ssd_chunked`'s
-# contract and checks dtypes and strides itself.
-ssd_scan = _ssd.ssd_scan
+def ssd_scan(*args, **kwargs):
+    """`ssd_scan.ssd_scan`, which keeps `ssd_chunked`'s contract and checks
+    dtypes and strides itself."""
+    _local_only(*args, *kwargs.values())
+    return _ssd.ssd_scan(*args, **kwargs)

@@ -39,6 +39,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -127,7 +128,8 @@ def _out_proj(p: Params, o, cfg: ModelConfig, lora, lora_scale,
               use_kernels: bool = False):
     B, S = o.shape[:2]
     o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return L.lora_proj(o, p["wo"], lora, "o", lora_scale, use_kernels)
+    return SH.constrain(L.lora_proj(o, p["wo"], lora, "o", lora_scale,
+                                    use_kernels), ("batch", "seq_sp", None))
 
 
 def attn_prefill(p: Params, x, positions, cfg: ModelConfig, *,
@@ -140,11 +142,17 @@ def attn_prefill(p: Params, x, positions, cfg: ModelConfig, *,
     q, k, v = _project_qkv(p, x, cfg, lora, lora_scale, use_kernels)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
+    q = SH.constrain(q, ("batch", None, "heads", None))
+    k = SH.constrain(k, ("batch", None, "kv_heads", None))
+    v = SH.constrain(v, ("batch", None, "kv_heads", None))
     o = L.flash_attention(q, k, v, causal=True, window=window,
                           q_offset=positions[:, 0])
     out = _out_proj(p, o, cfg, lora, lora_scale, use_kernels)
     if cache is not None:
-        cache = _cache_write_prefill(cache, k, v, positions, window)
+        # the cache's (seq-sharded, heads-replicated) layout before the write
+        kw = SH.constrain(k, ("batch", "seq_sp", None, None))
+        vw = SH.constrain(v, ("batch", "seq_sp", None, None))
+        cache = _cache_write_prefill(cache, kw, vw, positions, window)
     return out, cache
 
 
@@ -197,6 +205,11 @@ def attn_decode(p: Params, x, positions, cache: Dict, cfg: ModelConfig, *,
     counted in `INT8_ORACLE_CALLS`."""
     global INT8_ORACLE_CALLS
     q, k, v = _project_qkv(p, x, cfg, lora, lora_scale)
+    # the new token's q/k/v replicated on the model axis, as the
+    # sequence-sharded cache they meet
+    q = SH.constrain(q, ("batch", None, None, None))
+    k = SH.constrain(k, ("batch", None, None, None))
+    v = SH.constrain(v, ("batch", None, None, None))
     q = L.apply_rope(q, positions[:, None], cfg.rope_theta)
     k = L.apply_rope(k, positions[:, None], cfg.rope_theta)
     cache = _cache_write_bulk(cache, k, v, positions[:, None], window)
@@ -272,12 +285,17 @@ def mla_init(normal, ones, cfg: ModelConfig, lead=()) -> Params:
 
 
 def _mla_q(p: Params, x, positions, cfg: ModelConfig, lora, lora_scale,
-           use_kernels: bool = False):
+           use_kernels: bool = False, decode: bool = False):
     """(q_nope, q_rope) (..., S, H, nd / rd) of x (..., S, d); the q
-    adapter sits on the latent cq, after q_norm, as in the reference."""
+    adapter sits on the latent cq, after q_norm, as in the reference.
+    decode (x (B, 1, d)): q is laid out column-sharded, then replicated,
+    in two steps (one would gather the wq_b weight, not q)."""
     H, nd, rd = cfg.num_heads, cfg.mla_nope_dim, cfg.mla_rope_dim
     cq = L.rms_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
     q = L.lora_proj(cq, p["wq_b"], lora, "q", lora_scale, use_kernels)
+    if decode:
+        q = SH.constrain(q, ("batch", None, "ff"))
+        q = SH.constrain(q, ("batch", None, None))
     q = q.reshape(*x.shape[:-1], H, nd + rd)
     return q[..., :nd], L.apply_rope(q[..., nd:], positions, cfg.rope_theta)
 
@@ -309,13 +327,18 @@ def mla_prefill(p: Params, x, positions, cfg: ModelConfig, *,
     kv = (c_kv @ p["wkv_b"].to(x.dtype)).reshape(B, S, H, nd + vd)
     k = torch.cat([kv[..., :nd], k_rope[:, :, None, :].expand(B, S, H, rd)],
                   dim=-1)
-    o = L.flash_attention(torch.cat([q_nope, q_rope], dim=-1), k,
-                          kv[..., nd:], causal=True,
+    q_full = SH.constrain(torch.cat([q_nope, q_rope], dim=-1),
+                          ("batch", None, "heads", None))
+    k = SH.constrain(k, ("batch", None, "heads", None))
+    v = SH.constrain(kv[..., nd:], ("batch", None, "heads", None))
+    o = L.flash_attention(q_full, k, v, causal=True,
                           scale=(nd + rd) ** -0.5, q_offset=positions[:, 0])
     out = L.lora_proj(o.reshape(B, S, H * vd), p["wo"], lora, "o",
                       lora_scale, use_kernels)
+    out = SH.constrain(out, ("batch", "seq_sp", None))
     if cache is not None:
         n = min(S, cache["c_kv"].shape[1])
+        c_kv = SH.constrain(c_kv, ("batch", "seq_sp", None))
         cache["c_kv"][:, :n] = c_kv[:, :n].to(cache["c_kv"].dtype)
         cache["k_rope"][:, :n] = k_rope[:, :n].to(cache["k_rope"].dtype)
         cache["kv_pos"][:, :n] = positions[:, :n].to(torch.int32)
@@ -326,7 +349,8 @@ def _mla_decode_qkv(p: Params, x, positions, cache: Dict, cfg: ModelConfig,
                     lora, lora_scale):
     """The new token's (q_nope, q_rope) (B, H, nd / rd), with its latent
     written into the cache at `positions`, in place."""
-    q_nope, q_rope = _mla_q(p, x, positions[:, None], cfg, lora, lora_scale)
+    q_nope, q_rope = _mla_q(p, x, positions[:, None], cfg, lora, lora_scale,
+                            decode=True)
     c_kv, k_rope = _mla_latent(p, x, positions[:, None], cfg)
     bidx = torch.arange(x.shape[0], device=x.device)
     slot = positions.long()
@@ -364,7 +388,8 @@ def mla_decode(p: Params, x, positions, cache: Dict, cfg: ModelConfig, *,
     q_nope, q_rope = _mla_decode_qkv(p, x, positions, cache, cfg, lora,
                                      lora_scale)
     wkv_b = p["wkv_b"].to(x.dtype).reshape(kr, H, nd + vd)
-    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, wkv_b[..., :nd])
+    q_lat = SH.constrain(torch.einsum("bhn,rhn->bhr", q_nope,
+                                      wkv_b[..., :nd]), ("batch", None, None))
     c_kv = cache["c_kv"].float()
     s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), c_kv)
          + torch.einsum("bhr,bsr->bhs", q_rope.float(),

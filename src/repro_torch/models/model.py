@@ -76,6 +76,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -460,6 +461,7 @@ def decode_step(params, cfg: ModelConfig, tokens, positions, cache, *,
     are jnp, no kernel). The encoder does not run: the cross K/V are in
     the cache."""
     x = L.embed(tokens.long()[:, None], params["embed"])     # (B, 1, d)
+    x = SH.constrain(x, ("batch", None, None))
     for (kind, lp), (_, lc) in zip(_layers(cfg, params),
                                    _layers(cfg, cache)):
         x, _, _ = apply_layer(lp, x, positions, cfg, kind, mode="decode",
@@ -484,6 +486,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch: Dict):
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
+    x = SH.constrain(x, ("batch", "seq_sp", None))
     return x, positions, offset
 
 
@@ -495,6 +498,7 @@ def _encode(params, cfg: ModelConfig, batch: Dict):
     keeps none of its layers' activations."""
     x = batch["enc_frames"].to(params["embed"].dtype)
     B, Se = x.shape[:2]
+    x = SH.constrain(x, ("batch", "seq_sp", None))
     positions = torch.arange(Se, dtype=torch.int32,
                              device=x.device).expand(B, Se)
     enc = params["enc"]
@@ -532,7 +536,8 @@ def forward(params, cfg: ModelConfig, batch: Dict, *, adapters=None,
     for j in range(len(layers)):
         if remat and torch.is_grad_enabled():
             x, a = checkpoint(layer, x, j, use_reentrant=False,
-                              preserve_rng_state=False)
+                              preserve_rng_state=False,
+                              context_fn=SH.checkpoint_contexts)
         else:
             x, a = layer(x, j)
         aux = aux + a

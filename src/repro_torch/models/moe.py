@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -103,6 +104,7 @@ class _Dispatch(torch.autograd.Function):
         ids = slot_tok.clamp(min=0)[..., None].expand(G, slot_tok.shape[1], d)
         ctx.save_for_backward(slot_of, keep)
         ctx.k, ctx.T = k, T
+        ctx.mesh = SH.current()
         return torch.where((slot_tok >= 0)[..., None],
                            torch.gather(xt, 1, ids), 0)
 
@@ -111,12 +113,26 @@ class _Dispatch(torch.autograd.Function):
         slot_of, keep = ctx.saved_tensors
         k, T = ctx.k, ctx.T
         G, _, d = dxe.shape
-        dx = torch.zeros((G, T, d), dtype=torch.float32, device=dxe.device)
-        for ki in range(k):
-            part = torch.gather(dxe, 1, slot_of[:, ki::k, None].expand(G, T,
-                                                                       d))
-            dx += torch.where(keep[:, ki::k, None], part.float(), 0.0)
+        with ctx.mesh:
+            dx = None
+            for ki in range(k):
+                part = torch.gather(dxe, 1, slot_of[:, ki::k, None].expand(
+                    G, T, d))
+                part = torch.where(keep[:, ki::k, None], part.float(), 0.0)
+                dx = part if dx is None else dx.add_(part)
         return dx.to(dxe.dtype), None, None, None, None
+
+
+def _constrain_ecf(t, G: int):
+    """The reference's ("batch", "expert", None, None) layout of a (G, E,
+    C, f) activation, on the port's (E, G * C, f) form of it; t itself
+    without a mesh."""
+    if SH.active_mesh() is None:
+        return t
+    E, GC, f = t.shape
+    t4 = t.reshape(E, G, GC // G, f).transpose(0, 1)
+    t4 = SH.constrain(t4, ("batch", "expert", None, None))
+    return t4.transpose(0, 1).reshape(E, GC, f)
 
 
 def _top_k(scores: torch.Tensor, k: int):
@@ -173,14 +189,16 @@ def moe_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                              reduce="amax")
 
     # --- dispatch: a direct (G, E, C, d) gather ---------------------------
+    xt = SH.constrain(xt, ("batch", None, None))
     xe = _Dispatch.apply(xt, slot_tok, slot_of, keep, k)
-    xe = xe.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    xe = SH.constrain(xe.reshape(G, E, C, d), ("batch", "expert", None, None))
+    xe = xe.transpose(0, 1).reshape(E, G * C, d)
 
     # --- expert FFN: batched over the experts -----------------------------
     g = torch.bmm(xe, p["gate"].to(x.dtype))
     u = torch.bmm(xe, p["up"].to(x.dtype))
-    h = F.silu(g.float()).to(x.dtype) * u
-    ye = torch.bmm(h, p["down"].to(x.dtype))                     # (E, GC, d)
+    h = _constrain_ecf(F.silu(g.float()).to(x.dtype) * u, G)
+    ye = _constrain_ecf(torch.bmm(h, p["down"].to(x.dtype)), G)  # (E, GC, d)
     ye_flat = ye.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
 
     # --- combine: k strided gathers back to the tokens --------------------
@@ -189,7 +207,7 @@ def moe_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         idx = slot_of[:, ki::k]                                   # (G, T)
         part = torch.gather(ye_flat, 1, idx[..., None].expand(G, T, d))
         y = y + part.float() * w_keep[:, ki::k, None]
-    y = y.to(x.dtype).reshape(B, S, d)
+    y = SH.constrain(y.to(x.dtype).reshape(B, S, d), ("batch", "seq_sp", None))
 
     if cfg.num_shared_experts and "shared" in p:
         sh = p["shared"]

@@ -60,9 +60,9 @@ replay.
 LoRA matmul kernel: 7 launches per FWD unit and 14 per BWD unit (the
 recomputed forward and the dx of each projection) on a dense layer with
 all seven targets adapted; EMBED and EMBED_BWD launch it for the "pre"
-layers' projections: EMBED once each, EMBED_BWD three times (forward,
-the recompute of its per-layer checkpoint, dx) less the dx where a
-projection's input depends on no adapter (the first layer's q); HEAD
+layers' projections: EMBED once each, EMBED_BWD twice (forward, dx)
+less the dx where a projection's input depends on no adapter (the first
+layer's q/k/v, q for MLA); HEAD
 twice (forward, dx) for each adapted projection of the "post" layers.
 An RG-LRU layer's gate/up/down go through it, its parallel `rg_io`
 adapter does not (a plain product, as `ssm_io`).
@@ -79,7 +79,6 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import lora as LR
@@ -283,21 +282,16 @@ class UnitEngine:
         return self.kind(unit_idx) != "EMBED_BWD" or bool(self.pre_kinds)
 
     # ---------------------------------------------------------- device --
-    def _front(self, pre_ads, remat: bool = False):
-        """The embedding and the "pre" layers (pairs-form adapters). remat
-        recomputes each layer in the backward pass, so that autograd holds
-        one layer's activations at a time (`torch.utils.checkpoint`)."""
+    def _front(self, pre_ads):
+        """The embedding and the "pre" layers (pairs-form adapters)."""
         x, _, _ = MD._embed_inputs(self.params, self.cfg, {
             "tokens": self.batch["tokens"],
             "frontend": self.batch.get("frontend")})
         for kind, lp, ad in zip(self.pre_kinds, self.params["pre"],
                                 pre_ads):
-            def layer(h, lp=lp, kind=kind, ad=ad):
-                return MD.apply_layer(lp, h, self.positions, self.cfg, kind,
-                                      mode="full", lora=ad, scale=self.scale,
-                                      use_kernels=self.use_kernels)[0]
-            x = checkpoint(layer, x, use_reentrant=False,
-                           preserve_rng_state=False) if remat else layer(x)
+            x = MD.apply_layer(lp, x, self.positions, self.cfg, kind,
+                               mode="full", lora=ad, scale=self.scale,
+                               use_kernels=self.use_kernels)[0]
         return x
 
     def _layer(self, i, x, lora, state):
@@ -323,17 +317,17 @@ class UnitEngine:
 
     def _embed_bwd(self, state, _u):
         """The "pre" layers' adapter grads: the front recomputed on this
-        microbatch's tokens, back-propagated from dy = state["x"], each
-        layer recomputed once more in the backward pass (the reference's
-        attention recomputes its softmax blocks in its custom VJP; the
-        port's plain autograd would hold every pre layer's f32 attention
-        blocks at once: ~15 GB for deepseek-v3's 3 layers at 2 x 1024)."""
+        microbatch's tokens and back-propagated from dy = state["x"] by
+        one `torch.autograd.grad`, as the reference's one `jax.vjp` over
+        `front` (`repro/training/peft.py:239-254`). The flash attention's
+        backward recomputes its softmax blocks, so autograd holds no f32
+        attention block of any pre layer."""
         ads = [{name: {k: t.detach().requires_grad_() for k, t in v.items()}
                 for name, v in layer.items()}
                for layer in state["adapters"]["pre"]]
         leaves = tree_leaves(ads)
         with torch.enable_grad():
-            x = self._front([LR.as_pairs(ad) for ad in ads], remat=True)
+            x = self._front([LR.as_pairs(ad) for ad in ads])
             grads = torch.autograd.grad(x, leaves,
                                         grad_outputs=state["x"].to(x.dtype))
         for acc, g in zip(tree_leaves(state["grads"]["pre"]), grads):
