@@ -236,6 +236,20 @@ Then the seamless objects are freed:
      none launched): loss, adapters and AdamW moments bit-equal, only the
      loss's `gather` run replicated; times printed. Nothing here measures a layout over
      more than one card.
+ 21. the dry-run tooling: on the single-process `fake` process group
+     (world 512) and a "cuda"-typed 16x16 mesh, `launch/dryrun.py`'s
+     qwen3-8b x decode_32k x single cell and `launch/colocated_dryrun.py`'s
+     llama3-8b decode round + 4 qwen2.5-7b units, each on meta tensors
+     (ok, wall time, resident GB per device against 80 GB, dot FLOPs,
+     collective bytes by kind and the ops run replicated printed; a cell
+     that fails fails the run); then the per-device counts held against
+     the card: qwen3-8b's decode_32k step at batch 4 (16.4 GB of weights,
+     a 19.3 GB cache) and train_4k step at batch 1, each counted once on
+     meta tensors (`step_analysis`) and once for real on the card with
+     random weights and no kernel under the same counters: the FLOPs
+     equal, the resident estimate within 1 % of `max_memory_allocated`
+     above what was allocated before the inputs; each step's time (CUDA
+     events, median of 5) beside its roofline bound.
 The second line from the end lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repository
 around it, the script exits nonzero and prints no result.
@@ -4142,6 +4156,123 @@ def phase20_mesh(dev):
         shutil.rmtree(PHASE13_CKPT.parent, ignore_errors=True)
 
 
+# ------------------------------------------- 21. the dry-run tooling ----
+DRYRUN_DIR = ROOT / "build" / "dryrun_results_torch"
+# the meta count of a step's resident bytes against the card's peak: the
+# counters see every storage the step's ops return, not the caching
+# allocator's rounding nor the workspaces kernels take inside one op (an
+# H100 reads -0.003 % for the decode cell and -0.01 % for the train cell;
+# a count that dropped either step's temp bytes, 1.1 and 1.9 GB, is
+# 3-10 % off)
+DRYRUN_MEM_TOL = 0.01
+# qwen3-8b's cells cut in global batch to one card
+ACCOUNTING_CELLS = (("decode_32k", 4), ("train_4k", 1))
+
+
+def real_cell_args(cfg, cell, dev):
+    """The stand-ins of `specs.make_cell_fn`, for real on the card: random
+    seeded weights and adapters, an empty cache, random tokens."""
+    from repro_torch.models import model as MD
+    from repro_torch.training.optimizer import adamw_init
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    B, S, V = cell.global_batch, cell.seq_len, cfg.vocab_size
+
+    def ints(*shape):
+        return torch.randint(0, V, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+    params = MD.init_params(cfg, 0, device=dev)
+    if cell.kind == "decode":
+        return (params, ints(B), torch.full((B,), S - 1, dtype=torch.int32,
+                                            device=dev),
+                MD.init_cache(cfg, B, S, device=dev))
+    adapters = MD.init_adapters(cfg, 0, device=dev)
+    return (params, adapters, adamw_init(adapters),
+            {"tokens": ints(B, S), "labels": ints(B, S),
+             "mask": torch.ones((B, S), dtype=torch.float32, device=dev)})
+
+
+def signature(tree):
+    """[(shape, dtype)] of a tree's tensors (holding none of them)."""
+    from repro_torch.tree import tree_leaves
+    return [(tuple(t.shape), t.dtype) for t in tree_leaves(tree)
+            if isinstance(t, torch.Tensor)]
+
+
+def phase21_dryrun(dev):
+    """The dry-run on the `fake` group (a "cuda"-typed mesh), then its
+    per-device counts against the card (see the module's docstring)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import colocated_dryrun as CD
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch import step_analysis as SA
+    DR.start_fake_group()
+    try:
+        recs = [DR.run_cell("qwen3-8b", "decode_32k", "single", force=True,
+                            results_dir=DRYRUN_DIR, device_type="cuda"),
+                CD.run("llama3-8b", "qwen2.5-7b", 4, "single",
+                       results_dir=DRYRUN_DIR, device_type="cuda")]
+    finally:
+        dist.destroy_process_group()
+    for rec in recs:
+        log(f"dryrun: {DR.summary(rec)}; step {rec.get('step_s')} s on the "
+            f"{rec['device_type']}-typed {rec.get('chips')}-rank mesh")
+        if not rec.get("ok"):
+            raise AssertionError(f"dry-run cell failed: {rec['error']}\n"
+                                 f"{rec['traceback']}")
+    cfg = get_config("qwen3-8b")
+    for shape, batch in ACCOUNTING_CELLS:
+        cell = dataclasses.replace(SHAPES[shape], global_batch=batch)
+        step, margs = SP.make_cell_fn(cfg, cell)
+        t0 = time.perf_counter()
+        _, meta = SA.run_step(step, margs)
+        t_meta = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        args = real_cell_args(cfg, cell, dev)
+        if signature(margs) != signature(args):
+            raise AssertionError("the card's inputs are not the stand-ins'")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, card = SA.run_step(step, args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del res
+        ms = time_ms(lambda: step(*args), iters=5)
+        moved = meta.argument_bytes + meta.output_bytes - meta.alias_bytes
+        bound_ms = max(meta.dot_flops / PEAK_FLOPS[torch.bfloat16],
+                       moved / HBM_BYTES_PER_S) * 1e3
+        rel = meta.resident_bytes / peak - 1.0
+        log(f"dryrun accounting: qwen3-8b {shape} at batch {batch}, no "
+            f"mesh, no kernel: dot FLOPs on meta {meta.dot_flops:.6g}, on "
+            f"the card {card.dot_flops:.6g} (equal "
+            f"{meta.dot_flops == card.dot_flops}); resident bytes on meta "
+            f"{meta.resident_bytes / 1e9:.4f} GB (arguments "
+            f"{meta.argument_bytes / 1e9:.4f}, outputs "
+            f"{meta.output_bytes / 1e9:.4f}, temp "
+            f"{meta.temp_bytes / 1e9:.4f}, alias "
+            f"{meta.alias_bytes / 1e9:.4f}), the counters on the card's "
+            f"tensors {card.resident_bytes / 1e9:.4f} GB, "
+            f"max_memory_allocated above the memory before the inputs "
+            f"{peak / 1e9:.4f} GB: meta/card - 1 = {rel:+.4f} (limit "
+            f"{DRYRUN_MEM_TOL}); step {ms:.3f} ms (CUDA events, median of "
+            f"5) beside its roofline bound {bound_ms:.3f} ms = max(FLOPs / "
+            f"989e12, {moved / 1e9:.4f} GB moved / 3.35e12) "
+            f"({ms / bound_ms:.2f}x); the meta count took {t_meta:.2f} s")
+        if meta.dot_flops != card.dot_flops:
+            raise AssertionError("the FLOPs counted on the card differ from "
+                                 "the meta count")
+        if abs(rel) > DRYRUN_MEM_TOL:
+            raise AssertionError("the meta count of the resident bytes is "
+                                 f"{rel:+.1%} off the card's peak")
+        del args
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4270,7 +4401,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     phase20_mesh(dev)
-    log(f"phase 20 took {time.perf_counter() - t_phase:.1f} s; whole run "
+    log(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    phase21_dryrun(dev)
+    log(f"phase 21 took {time.perf_counter() - t_phase:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     llama["k1"]["launches_by_path"].update(serve_danube=danube["launches"],
                                            **mixtral["k1"],

@@ -124,6 +124,77 @@ def distribute(x: torch.Tensor, mesh, spec: Sequence[Axis]):
                              src_data_rank=None)
 
 
+def write_slots(cache: dict, slots, entries: dict) -> None:
+    """cache[name][b, slots[b, j]] = entries[name][b, j] for every entry,
+    row b and token j, in place: decode's cache write. Each buffer is
+    (B, S, ...), slots (B, s) int64, each entry (B, s, ...). Plain
+    tensors take one `index_put_` each, all with one row index. A DTensor
+    laid out as `partitioning.cache_specs` lays a cache out (batch on the
+    data axes, sequence on "model"), whose in-place `index_put_` DTensor
+    refuses, is written block by block (`_write_sharded`)."""
+    if not any(hasattr(cache[name], "placements") for name in entries):
+        bidx = torch.arange(slots.shape[0], device=slots.device)[:, None]
+        for name, t in entries.items():
+            cache[name][bidx, slots] = t.to(cache[name].dtype)
+        return
+    for name, t in entries.items():
+        _write_sharded(cache[name], slots, t)
+
+
+def _write_sharded(buf, slots, values) -> None:
+    """`write_slots` of one DTensor buffer, block by block (`local_map`):
+    each rank takes the rows of the slots and values that its batch block
+    holds, and writes of them only the tokens whose slot falls in its own
+    sequence range, with no host read. The values are gathered along the
+    sequence axes (decode's new token is replicated there already); the
+    buffer never moves, as GSPMD's partitioned `.at[].set` leaves it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = buf.device_mesh
+    if any(not (isinstance(p, Replicate) or p in (Shard(0), Shard(1)))
+           for p in buf.placements):
+        raise ValueError(f"write_slots: a buffer laid out {buf.placements}; "
+                         "only the batch and sequence dims may be sharded")
+    rows = tuple(p if p == Shard(0) else Replicate() for p in buf.placements)
+    # the first slot of this rank's sequence block (the outer mesh dim
+    # major, as DTensor splits a dim over several mesh dims)
+    n, first = buf.shape[1], 0
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(buf.placements):
+        if p == Shard(1):
+            if n % mesh.size(i):
+                raise ValueError(f"write_slots: {buf.shape[1]} slots do "
+                                 f"not split evenly over {mesh.shape}")
+            n //= mesh.size(i)
+            first += coord[i] * n
+
+    def dt(x):
+        return x if isinstance(x, DTensor) else DTensor.from_local(
+            x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    local_map(_write_block, out_placements=(buf.placements,),
+              in_placements=(buf.placements, rows, rows, None),
+              device_mesh=mesh, redistribute_inputs=True)(
+        buf, dt(slots), dt(values), first)
+
+
+def _write_block(buf, slots, values, first: int):
+    """`write_slots` on one rank's block: buf (b, n, ...) holds slots
+    first..first+n-1 of its b rows; a token whose slot lies outside them
+    writes the slot's own value back (a clamped index, so no row reads
+    its slot from the host). One column of tokens at a time, so that no
+    (row, slot) pair repeats within one `index_put_`."""
+    n = buf.shape[1]
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    for j in range(slots.shape[1]):
+        local = slots[:, j] - first
+        inside = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        keep = inside.reshape((-1,) + (1,) * (values.ndim - 2))
+        buf[rows, local] = torch.where(keep, values[:, j].to(buf.dtype),
+                                       buf[rows, local])
+    return buf
+
+
 # ----------------------------------------------- the replicated fallback --
 # op name -> times it ran replicated under `use_mesh` (what the tests list)
 FALLBACKS: Counter = Counter()
@@ -137,12 +208,55 @@ REPLICATED_OPS = frozenset({"gather", "scatter", "scatter_", "scatter_add",
                             "scatter_reduce_"})
 # ops that run replicated only where DTensor refuses their layouts: a
 # reshape that would split a sharded dim unevenly (qwen3's and mixtral's
-# column-sharded heads at smoke size on a 4-way model axis)
-UNEVEN_VIEW_OPS = frozenset({"reshape"})
+# column-sharded heads at smoke size on a 4-way model axis; it runs
+# through `_Reshape`, so that its backward does the same), and a product
+# whose batch dims it cannot fold into rows: torch 2.11's DTensor refuses
+# to flatten a sharded dim (a sequence-parallel activation (B, S, d) laid
+# out on S, going into `x @ w`), which 2.13's lays out as a strided shard
+UNEVEN_VIEW_OPS = frozenset({"reshape", "__matmul__", "matmul"})
 
 
 def _in_place(name: str) -> bool:
     return name.endswith("_") and not name.endswith("__")
+
+
+def _reshape(x, shape):
+    """A DTensor's reshape, replicated where DTensor refuses its layout."""
+    from torch.distributed.tensor import DTensor, Replicate
+    try:
+        return x.reshape(shape)
+    except RuntimeError:
+        pass
+    FALLBACKS["reshape"] += 1
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    full = x.redistribute(mesh, rep).to_local().reshape(shape)
+    return DTensor.from_local(full, mesh, rep, run_check=False)
+
+
+class _Reshape(torch.autograd.Function):
+    """`_reshape`, whose backward reshapes the gradient back the same way.
+    Autograd's own backward of a reshape that DTensor ran is a view of the
+    gradient, which fails where the gradient is laid out on a dim that the
+    forward merged and the view splits unevenly: qwen3-14b's attention
+    output (40 heads merged, then laid out over a 16-way axis by the o
+    projection) on the 2x16x16 mesh."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = x.shape
+        return _reshape(x, shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reshape(grad, ctx.shape), None
+
+
+def _shape_arg(args, kwargs):
+    """The target shape of `x.reshape(...)` or `torch.reshape(x, ...)`."""
+    shape = kwargs["shape"] if "shape" in kwargs else \
+        args[1] if len(args) == 2 else args[1:]
+    return (shape,) if isinstance(shape, int) else tuple(shape)
 
 
 class _ReplicatedFallback(TorchFunctionMode):
@@ -175,6 +289,8 @@ class _ReplicatedFallback(TorchFunctionMode):
             # a plain tensor beside a DTensor is replicated: wrapped here,
             # so that the backward pass sees DTensors only
             args, kwargs = tree_map(wrap, args), tree_map(wrap, kwargs)
+        if name == "reshape" and isinstance(args[0], DTensor):
+            return _Reshape.apply(args[0], _shape_arg(args, kwargs))
         if name not in REPLICATED_OPS:
             if name not in UNEVEN_VIEW_OPS:
                 return func(*args, **kwargs)
@@ -319,7 +435,16 @@ def constrain(x, logical: Sequence[Optional[str]]):
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
-    return x.redistribute(mesh, placements(mesh, fixed, x.ndim))
+    # A redistribution leaves its local result contiguous but keeps the
+    # global strides. Given a transposed tensor, or in the backward pass
+    # a transposed gradient, its result is a shard laid out unlike its
+    # global view; DTensor refuses a later view of it, and a reshape then
+    # runs replicated, gathering the whole activation (deepseek-v3's MoE
+    # layout, forward and backward): both go in contiguous.
+    y = x.contiguous().redistribute(mesh, placements(mesh, fixed, x.ndim))
+    if y.requires_grad:
+        y.register_hook(torch.Tensor.contiguous)
+    return y
 
 
 def named_sharding(logical: Sequence[Optional[str]]):

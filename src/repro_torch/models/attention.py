@@ -159,12 +159,11 @@ def attn_prefill(p: Params, x, positions, cfg: ModelConfig, *,
 def _cache_write_bulk(cache, k, v, positions, window: int = 0):
     """Scatter a token chunk (B, s, KV, hd) at `positions` (B, s), in
     place; into slot p % S of the ring when windowed; quantized per token
-    first into an int8 cache."""
+    first into an int8 cache. On a mesh-laid-out cache each rank writes
+    its own block (`sharding.write_slots`)."""
     S_max = cache["k"].shape[1]
     slots = (positions % S_max if window else positions).long()
-    bidx = torch.arange(k.shape[0], device=k.device)[:, None]
-    for name, t in _kv_entries(cache, k, v, positions).items():
-        cache[name][bidx, slots] = t.to(cache[name].dtype)
+    SH.write_slots(cache, slots, _kv_entries(cache, k, v, positions))
     return cache
 
 
@@ -352,11 +351,9 @@ def _mla_decode_qkv(p: Params, x, positions, cache: Dict, cfg: ModelConfig,
     q_nope, q_rope = _mla_q(p, x, positions[:, None], cfg, lora, lora_scale,
                             decode=True)
     c_kv, k_rope = _mla_latent(p, x, positions[:, None], cfg)
-    bidx = torch.arange(x.shape[0], device=x.device)
-    slot = positions.long()
-    cache["c_kv"][bidx, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
-    cache["k_rope"][bidx, slot] = k_rope[:, 0].to(cache["k_rope"].dtype)
-    cache["kv_pos"][bidx, slot] = positions.to(torch.int32)
+    SH.write_slots(cache, positions.long()[:, None],
+                   {"c_kv": c_kv, "k_rope": k_rope,
+                    "kv_pos": positions[:, None].to(torch.int32)})
     return q_nope[:, 0], q_rope[:, 0]
 
 
