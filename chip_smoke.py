@@ -233,8 +233,8 @@ Then the seamless objects are freed:
      restored onto it with `adapter_specs`, bit-equal to the single-card
      restore; llama3-8b's weights laid out by `param_specs`; one one-shot
      train step under `use_mesh` against the plain step (kernels off,
-     none launched): loss, adapters and AdamW moments bit-equal, only the
-     loss's `gather` run replicated; times printed. Nothing here measures a layout over
+     none launched): loss, adapters and AdamW moments bit-equal, no op
+     run replicated; times printed. Nothing here measures a layout over
      more than one card.
  21. the dry-run tooling: on the single-process `fake` process group
      (world 512) and a "cuda"-typed 16x16 mesh, `launch/dryrun.py`'s
@@ -250,6 +250,21 @@ Then the seamless objects are freed:
      equal, the resident estimate within 1 % of `max_memory_allocated`
      above what was allocated before the inputs; each step's time (CUDA
      events, median of 5) beside its roofline bound.
+ 22. the co-location simulator (`core/simulator.py`, the paper's Fig. 11
+     experiment) on the card's constants: llama3-8b serving and finetuning
+     on one H100 (tp 1), qos 40 ms, a 120 s trace at 6 rps (seed 1), sim
+     seed 2, in separate, static and harli mode, once with the committed
+     `H100_CONSTANTS` and once with the constants this run fitted after
+     phase 12: per mode finetune throughput, TPOT p50 and p99, the QoS
+     violation share, completed requests, decode rounds, the allocator's
+     peak window and KV chunks and the wall time; harli against separate
+     and static in %; harli rerun with the same seed, which must give the
+     identical result; harli's QoS attainment held to 0.97 (the
+     reference's regression bar) and harli and separate to completing
+     every request, as the regression test holds them. Then the model's
+     solo round at phase 3's operating point (8 slots, its mean context)
+     beside the graphed round phase 3 measured. Every number here is the
+     cost model's prediction; no kernel runs.
 The second line from the end lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repository
 around it, the script exits nonzero and prints no result.
@@ -453,10 +468,13 @@ def ab_solo_rounds(eng, cfg, label, rounds=20, block=5, profiled=5):
                              eng._stub_extras(r)):
             raise AssertionError("the A/B's requests were not admitted")
     times = {"eager": [], "graphed": []}
+    ctxs = []                   # the graphed rounds' mean context
     for mode in ("eager", "graphed", "graphed", "eager") * \
             (rounds // (2 * block)):
         eng.graphs = mode == "graphed"
         for _ in range(block):
+            if mode == "graphed":
+                ctxs.append(statistics.mean(r.context_len for r in reqs))
             eng.decode_round()
             times[mode].append(eng.metrics.round_s[-1])
     busy = {}                   # mode: (share, device ms, events) per round
@@ -491,6 +509,7 @@ def ab_solo_rounds(eng, cfg, label, rounds=20, block=5, profiled=5):
             f"median round, device events per round {busy[mode][2]:.1f}")
     log(f"{label} A/B: graphed / eager round median "
         f"{out['graphed'][0] / out['eager'][0]:.3f}")
+    out["ctx"] = statistics.mean(ctxs)
     return out
 
 
@@ -1547,6 +1566,7 @@ def costmodel_fit(points):
         if e:
             log(f"costmodel error: {name} constants, {group} points: mean "
                 f"{statistics.mean(e):.3f} max {max(e):.3f} over {len(e)}")
+    return fitted
 
 
 # ------------------------------------------------------------------ K3 ----
@@ -2044,7 +2064,7 @@ def phases_llama3(dev):
         f"{32 * m.decode_rounds}), plain calls={plain_calls}")
     if launches != cfg.num_layers * m.decode_rounds or plain_calls:
         raise AssertionError("decode attention did not run through K1")
-    ab_solo_rounds(eng, cfg, "serve")
+    ab = ab_solo_rounds(eng, cfg, "serve")
 
     pos = (eng.cache["scan"]["kv_pos"][0] >= 0).sum(dim=-1).to(torch.int32)
     tok = torch.tensor(eng.last_token, device=dev)
@@ -2139,7 +2159,8 @@ def phases_llama3(dev):
                         launches_by_path={"train_iteration": train_launches,
                                           "colocated_serve": k2_7}),
                 points=cost_points(cfg, colo, unit_s),
-                served=dict(tokens=served, cache_bytes=tree_bytes(eng.cache)))
+                served=dict(tokens=served, cache_bytes=tree_bytes(eng.cache)),
+                phase3=dict(round_s=ab["graphed"][0], ctx=ab["ctx"]))
 
 
 # ------------------------------------------- sliding window and MoE ----
@@ -4022,8 +4043,9 @@ def phase20_mesh(dev):
     `use_mesh` against the same step on plain tensors: loss, adapters and
     the AdamW moments (which carry the gradient) bit-equal, as one rank's
     collectives are the identity (the reference's sharded-step bound,
-    adapters atol 5e-3 and rtol 5e-2, is printed beside them), only the
-    loss's `gather` run replicated, and no kernel launched. Nothing here measures a layout over more than
+    adapters atol 5e-3 and rtol 5e-2, is printed beside them), no op run
+    replicated (the loss's gold logit runs on the shards,
+    `sharding.gather`), and no kernel launched. Nothing here measures a layout over more than
     one card."""
     import shutil
 
@@ -4145,10 +4167,10 @@ def phase20_mesh(dev):
         if not all(bits.values()) or excess > 5e-3:
             raise AssertionError("the step on the mesh differs from the "
                                  "plain step")
-        if set(SH.FALLBACKS) != {"gather"}:
+        if SH.FALLBACKS:
             raise AssertionError(f"the ops run replicated are "
-                                 f"{dict(SH.FALLBACKS)}, not the loss's "
-                                 f"gather alone")
+                                 f"{dict(SH.FALLBACKS)}; none should be "
+                                 f"(the loss's gather runs on the shards)")
         return {"restore_bit_equal": equal, "loss": (loss_p, loss_m),
                 "times": times}
     finally:
@@ -4273,6 +4295,104 @@ def phase21_dryrun(dev):
         del args
 
 
+# ------------------------------------------------------ the simulator --
+SIM_TRACE = dict(duration_s=120.0, mean_rps=6.0, seed=1)
+SIM_QOS_S = 0.040
+SIM_SEED = 2
+# harli's least QoS attainment: tests/test_simulator_regression.py's bar
+SIM_ATTAIN = 0.97
+# the modes held to completing every request, as the regression test
+# holds them (`test_all_requests_complete`); static's count is printed
+SIM_COMPLETE_MODES = ("separate", "harli")
+
+
+def sim_state(res):
+    """A SimResult as plain values, less its predictor report (whose fit
+    times are wall-clock)."""
+    out = dataclasses.asdict(res)
+    out.pop("predictor_report")
+    return out
+
+
+def phase22_simulator(phase3, fitted):
+    """The co-location simulator on one H100 (see the module's docstring,
+    22), with the committed and this run's fitted cost constants."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.allocator import BLOCK_BYTES
+    from repro_torch.core.costmodel import (H100_CONSTANTS, CostModel,
+                                            InstanceSpec)
+    from repro_torch.core.simulator import SimConfig, simulate
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.trace import TraceConfig, generate
+    cfg = get_config("llama3-8b")
+    base = generate(TraceConfig(**SIM_TRACE))
+    chunk_bytes = cfg.num_layers * 2 * BLOCK_BYTES
+
+    def replay(mode, spec):
+        reqs = [Request(rid=r.rid, arrival=r.arrival,
+                        prompt_len=r.prompt_len,
+                        max_new_tokens=r.max_new_tokens) for r in base]
+        t0 = time.perf_counter()
+        res = simulate(cfg, cfg, reqs, SimConfig(
+            mode=mode, qos_s=SIM_QOS_S, seed=SIM_SEED, tp=1), spec=spec)
+        return res, time.perf_counter() - t0
+
+    card = card_line()
+    log(f"sim: {cfg.name} serving and finetuning on one H100 (tp 1), qos "
+        f"{1e3 * SIM_QOS_S:.0f} ms, trace {SIM_TRACE} ({len(base)} "
+        f"requests), sim seed {SIM_SEED}; the cost model's prediction, no "
+        f"kernel runs; card {card}")
+    for name, consts in (("committed", H100_CONSTANTS), ("fitted", fitted)):
+        spec = InstanceSpec(consts=consts)
+        out = {}
+        for mode in ("separate", "static", "harli"):
+            res, wall = replay(mode, spec)
+            out[mode] = res
+            tl = res.memory_timeline
+            window = max((m["window_chunks"] for m in tl), default=0)
+            kv = max((m["kv_bytes"] for m in tl), default=0) // chunk_bytes
+            log(f"sim {name} {mode}: ft_throughput {res.ft_throughput:.4f} "
+                f"(iterations/s x minibatch), TPOT p50 "
+                f"{1e3 * np.percentile(res.tpot, 50):.3f} ms p99 "
+                f"{1e3 * np.percentile(res.tpot, 99):.3f} ms, QoS "
+                f"violations {res.qos_violation_frac:.4f}, completed "
+                f"{res.completed} of {len(base)}, decode rounds "
+                f"{res.decode_rounds}, allocator peak window {window} "
+                f"chunks and KV {kv} chunks of "
+                f"{chunk_bytes / 2 ** 20:.0f} MiB "
+                f"({len(tl)} snapshots), wall {wall:.2f} s; card {card}")
+        h, s_, st = out["harli"], out["separate"], out["static"]
+        log(f"sim {name}: harli vs separate "
+            f"{100 * (h.ft_throughput / s_.ft_throughput - 1):+.2f} %, "
+            f"harli vs static "
+            f"{100 * (h.ft_throughput / st.ft_throughput - 1):+.2f} % "
+            f"finetune throughput; card {card}")
+        again, _ = replay("harli", spec)
+        same = sim_state(again) == sim_state(h)
+        log(f"sim {name}: harli rerun with seed {SIM_SEED} identical: "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"sim {name}: a second harli run with the "
+                                 f"same seed differs")
+        for mode in SIM_COMPLETE_MODES:
+            if out[mode].completed != len(base):
+                raise AssertionError(
+                    f"sim {name} {mode}: {out[mode].completed} of "
+                    f"{len(base)} requests completed")
+        if 1.0 - h.qos_violation_frac < SIM_ATTAIN:
+            raise AssertionError(f"sim {name}: harli's QoS attainment "
+                                 f"{1.0 - h.qos_violation_frac:.4f} < "
+                                 f"{SIM_ATTAIN}")
+    parts = []
+    for name, consts in (("committed", H100_CONSTANTS), ("fitted", fitted)):
+        cm = CostModel(cfg, InstanceSpec(consts=consts), noise_sigma=0.0)
+        t = cm.decode_solo(8, phase3["ctx"], noisy=False)
+        parts.append(f"{name} {1e3 * t:.3f} ms")
+    log(f"sim: the model's solo round at phase 3's operating point (8 slots, "
+        f"mean context {phase3['ctx']:.1f}): {'; '.join(parts)}; phase 3's "
+        f"graphed round median {1e3 * phase3['round_s']:.3f} ms; card {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4346,8 +4466,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     mixtral = phase12_mixtral(dev)
     log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
-    costmodel_fit([llama.pop("points"), mamba_points,
-                   mixtral.pop("points")])
+    fitted = costmodel_fit([llama.pop("points"), mamba_points,
+                            mixtral.pop("points")])
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4407,7 +4527,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     phase21_dryrun(dev)
-    log(f"phase 21 took {time.perf_counter() - t_phase:.1f} s; whole run "
+    log(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase22_simulator(llama.pop("phase3"), fitted)
+    log(f"phase 22 took {time.perf_counter() - t_phase:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     llama["k1"]["launches_by_path"].update(serve_danube=danube["launches"],
                                            **mixtral["k1"],

@@ -81,7 +81,8 @@ def _to_savable(leaf):
 
 
 def _from_saved(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    # `ascontiguousarray` makes a 0-d array 1-d: keep the saved shape
+    t = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
     if dtype_name in _EXOTIC:
         return t.reshape(-1).view(_EXOTIC[dtype_name]).reshape(arr.shape[:-1])
     return t

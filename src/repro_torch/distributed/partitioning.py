@@ -116,6 +116,23 @@ def param_specs(cfg: ModelConfig, params, mesh, axes: MeshAxes = MeshAxes()):
     return _walk(params, spec)
 
 
+def expert_use_specs(cfg: ModelConfig, n_slots: int):
+    """The logical layouts (`sharding.constrain`) that the routed experts'
+    gate, up and down weights are used in by a product over `n_slots`
+    slots an expert, or None to use them as stored. Stored (`param_specs`,
+    the reference's layout), E splits over every axis it divides; where it
+    does not split the whole mesh, "data" splits d (mixtral's 8 experts).
+    The product then moves either its slots, (E, n_slots, d), or the
+    weights' d, (E, d, ff): the weights are gathered on use (E by
+    "expert", ff by "ff", d whole, as FSDP gathers a layer's weights)
+    where they are the smaller, with more slots than the ff width
+    (prefill, training); decode's few slots move instead."""
+    if n_slots <= cfg.moe_d_ff:
+        return None
+    return {"gate": ("expert", None, "ff"), "up": ("expert", None, "ff"),
+            "down": ("expert", "ff", None)}
+
+
 def fsdp_param_specs(cfg: ModelConfig, params, mesh):
     """Fully-sharded weights: every leaf sharded on its largest divisible
     dim over the flattened mesh (then progressively fewer axes)."""

@@ -27,7 +27,11 @@ GSPMD. The few ops that DTensor cannot run on their inputs' layouts
 (`REPLICATED_OPS`, `UNEVEN_VIEW_OPS`) run replicated, in one place
 (`_ReplicatedFallback`): their inputs are gathered before them, as GSPMD
 does with an op it cannot partition, and `FALLBACKS` counts each by name.
-Any other op that DTensor refuses raises.
+Any other op that DTensor refuses raises. The call sites where that would
+gather a large input call the partitioned forms instead, on layouts they
+state: `gather` (the loss's gold logit, the MoE's dispatch and combine),
+`per_group` (the MoE's slot plan), `logsumexp`, `even_split` and
+`expand_kv`.
 """
 
 from __future__ import annotations
@@ -202,7 +206,8 @@ FALLBACKS: Counter = Counter()
 # smaller than their target, so DTensor's local op, given a batch-sharded
 # index and a replicated target, writes the wrong rows without an error;
 # DTensor's vocab-parallel `gather` leaves a masked partial sum that a
-# later redistribution cannot reduce.
+# later redistribution cannot reduce. The call sites that would gather a
+# large input so run on the shards through `gather` and `per_group`.
 REPLICATED_OPS = frozenset({"gather", "scatter", "scatter_", "scatter_add",
                             "scatter_add_", "scatter_reduce",
                             "scatter_reduce_"})
@@ -218,6 +223,169 @@ UNEVEN_VIEW_OPS = frozenset({"reshape", "__matmul__", "matmul"})
 
 def _in_place(name: str) -> bool:
     return name.endswith("_") and not name.endswith("__")
+
+
+def gather(x, dim: int, index):
+    """`torch.gather(x, dim, index)`, on the local shards where x is a
+    DTensor (the loss's gold logit, the MoE's dispatch and combine). The
+    caller lays index out as x on every dim but `dim`: on each mesh dim
+    both are whole, or both split along the same dim, of the same size.
+    Along `dim`, either the index is split and x whole (the dispatch: each
+    rank fills the slots of its own experts), or x is split evenly and the
+    index whole (the vocabulary of a vocab-parallel loss, the experts'
+    slots of the combine): there each rank gathers the entries its block
+    of x holds, zero for the others, and the blocks' results are summed
+    over those mesh dims (an all-reduce), as Megatron computes the gold
+    logit. The result is laid out as the index. Differentiable
+    (`local_map`). Any other layout raises; x itself off a mesh."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    if _CTX.mesh is None or not isinstance(x, DTensor):
+        return torch.gather(x, dim, index)
+    mesh, dim = x.device_mesh, dim % x.ndim
+    if not isinstance(index, DTensor):
+        index = DTensor.from_local(index, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    masked, n, first = [], x.shape[dim], 0
+    coord = mesh.get_coordinate()
+    for i, (px, pi) in enumerate(zip(x.placements, index.placements)):
+        if px == pi and (isinstance(px, Replicate) or (
+                isinstance(px, Shard) and px.dim % x.ndim != dim
+                and x.shape[px.dim] == index.shape[px.dim])):
+            continue
+        if isinstance(px, Replicate) and pi == Shard(dim):
+            continue
+        if px == Shard(dim) and isinstance(pi, Replicate) and \
+                n % mesh.size(i) == 0:
+            # the first entry of this rank's block (the outer mesh dim
+            # major, as DTensor splits a dim over several mesh dims)
+            masked.append(i)
+            n //= mesh.size(i)
+            first += coord[i] * n
+            continue
+        raise ValueError(f"gather along dim {dim}: x {tuple(x.shape)} laid "
+                         f"out {x.placements}, index {tuple(index.shape)} "
+                         f"{index.placements}")
+
+    def block(xl, il):
+        if not masked:
+            return torch.gather(xl, dim, il)
+        local = il - first
+        inside = (local >= 0) & (local < n)
+        out = torch.gather(xl, dim, local.clamp(0, n - 1))
+        return torch.where(inside, out, torch.zeros_like(out))
+    # where the index alone is split along `dim`, each rank's gradient of
+    # x holds its own entries' terms: a partial sum
+    dx = [Partial() if isinstance(px, Replicate) and pi == Shard(dim) else px
+          for px, pi in zip(x.placements, index.placements)]
+    out = local_map(block, out_placements=(
+        [Partial() if i in masked else p
+         for i, p in enumerate(index.placements)],),
+        in_placements=(x.placements, index.placements),
+        in_grad_placements=(dx, index.placements), device_mesh=mesh,
+        redistribute_inputs=False)(x, index)
+    return out.redistribute(mesh, index.placements) if masked else out
+
+
+def per_group(fn, *args):
+    """fn(*args) group by group: each tensor's leading dim, the groups, is
+    laid out on "batch" and its other dims whole, and fn runs as off a mesh
+    on each rank's own groups; its outputs, a tuple of tensors that lead
+    with the groups, are laid out so too (the MoE's slot plan, whose
+    scatters and gathers act within a group). fn(*args) itself off a
+    mesh."""
+    from torch.distributed.tensor import DTensor
+    mesh = _CTX.mesh
+    if mesh is None:
+        return fn(*args)
+    args = [constrain(a, ("batch",) + (None,) * (a.ndim - 1)) for a in args]
+    _CTX.mesh = None
+    try:
+        outs = fn(*(a.to_local() for a in args))
+    finally:
+        _CTX.mesh = mesh
+    return tuple(DTensor.from_local(o, mesh, args[0].placements,
+                                    run_check=False) for o in outs)
+
+
+def logsumexp(x, dim: int = -1):
+    """`torch.logsumexp(x, dim)`; where x is a DTensor split along `dim`
+    (a vocab-parallel loss's logits), in the form whose two reductions
+    DTensor partitions, as Megatron does: the block maxima, an all-reduce
+    of their max, each block's sum of exp(x - max), an all-reduce of the
+    sums. DTensor's own `logsumexp` gathers the whole of `dim` on every
+    rank. The max is held constant under autograd (its gradient through
+    both terms cancels), so the gradient is the softmax."""
+    from torch.distributed.tensor import DTensor, Shard
+    dim %= x.ndim
+    if _CTX.mesh is None or not isinstance(x, DTensor) or not any(
+            isinstance(p, Shard) and p.dim % x.ndim == dim
+            for p in x.placements):
+        return torch.logsumexp(x, dim)
+    m = x.detach().amax(dim=dim, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    return (m + torch.log(torch.exp(x - m).sum(dim=dim, keepdim=True))
+            ).squeeze(dim)
+
+
+def _split_over(x, dim: int):
+    """(for each mesh dim, whether it splits x's `dim`; how many ways they
+    split it together)."""
+    from torch.distributed.tensor import Shard
+    mine = [isinstance(p, Shard) and p.dim % x.ndim == dim % x.ndim
+            for p in x.placements]
+    n = 1
+    for i, m in enumerate(mine):
+        n *= x.device_mesh.size(i) if m else 1
+    return mine, n
+
+
+def even_split(x, dim: int, outer: int):
+    """x, laid out so that splitting its `dim` into (outer, rest) is even
+    on every rank: where the mesh dims that split `dim` do not divide
+    `outer` (a projection's 8 K/V heads of a 16-way model axis), `dim` is
+    gathered first, as GSPMD gathers it before such a reshape, and the
+    reshape then runs on the shards. x itself off a mesh or where the
+    split is even."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if _CTX.mesh is None or not isinstance(x, DTensor):
+        return x
+    mine, n = _split_over(x, dim)
+    if outer % n == 0:
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if m else p
+                                          for m, p in zip(mine,
+                                                          x.placements)])
+
+
+def expand_kv(q, k, v):
+    """(k, v) for attention with q (B, Sq, H, hd) over k, v (B, Sk, KV,
+    d): where q's heads are laid out over mesh dims that KV does not
+    divide, the grouped view (KV, H // KV) of q would split its heads
+    unevenly, and every rank would compute every head; then each K/V head
+    is repeated H // KV times (the grouping the attention reads) and laid
+    out as q's heads, so that each rank attends with its own heads. The
+    reference's GSPMD partitions the grouped product over q's heads the
+    same way (`_fit` leaves k/v's 8 heads replicated). k and v themselves
+    off a mesh, without groups, or where KV splits as q's heads do."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if _CTX.mesh is None or not isinstance(q, DTensor):
+        return k, v
+    H, KV = q.shape[2], k.shape[2]
+    mine, n = _split_over(q, 2)
+    if H == KV or KV % n == 0:
+        return k, v
+    g, mesh = H // KV, q.device_mesh
+
+    def grow(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        B, S, _, d = t.shape
+        t = t[:, :, :, None].expand(B, S, KV, g, d).reshape(B, S, H, d)
+        return t.redistribute(mesh, [Shard(2) if m else p
+                                     for m, p in zip(mine, t.placements)])
+    return grow(k), grow(v)
 
 
 def _reshape(x, shape):

@@ -40,7 +40,12 @@ weight copies; eager torch makes none) and `total_tpu` (no f32 collectives
 carry legalized bf16 data). A storage's bytes are counted from its first
 sight to its release by Python's reference counting (weak references, as
 `MemTracker` tracks storages), not by the caching allocator's rounding or
-the workspaces that kernels take inside one op.
+the workspaces that kernels take inside one op. One exception: the
+result of `_dtensor.shard_dim_alltoall` counts its own bytes, not its
+storage's. Its meta kernel concatenates one copy of the input per rank of
+the group and returns that rank's chunk, a view of a storage the size of
+the whole gathered dim; NCCL's all-to-all returns a buffer the size of
+its input.
 """
 
 from __future__ import annotations
@@ -189,7 +194,7 @@ class StepAnalysis(TorchDispatchMode):
         if self._held.pop(key, None) is not None:
             self.live -= nbytes
 
-    def _track(self, out) -> None:
+    def _track(self, out, own_bytes: bool = False) -> None:
         for t in tree_leaves(out):
             if not isinstance(t, torch.Tensor) or \
                     isinstance(t, self.wrappers):
@@ -198,7 +203,7 @@ class StepAnalysis(TorchDispatchMode):
             key = _key(st)
             if key in self._held or key in self.arguments:
                 continue
-            n = st.nbytes()
+            n = t.numel() * t.element_size() if own_bytes else st.nbytes()
             self._held[key] = n
             self.live += n
             weakref.finalize(st, self._release, key, n)
@@ -228,7 +233,7 @@ class StepAnalysis(TorchDispatchMode):
         if packet in self.flop_registry:
             self.stats.dot_flops += self.flop_registry[packet](
                 *args, **kwargs, out_val=out)
-        self._track(out)
+        self._track(out, own_bytes=name == "_dtensor::shard_dim_alltoall")
         return out
 
 

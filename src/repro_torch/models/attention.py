@@ -113,7 +113,7 @@ def _project_qkv(p: Params, x, cfg: ModelConfig, lora, lora_scale,
 
     def proj(w, name, n_out):
         y = L.lora_proj(x, w, lora, name, lora_scale, use_kernels)
-        return y.reshape(B, S, n_out, hd)
+        return SH.even_split(y, -1, n_out).reshape(B, S, n_out, hd)
 
     q = proj(p["wq"], "q", H)
     k = proj(p["wk"], "k", KV)

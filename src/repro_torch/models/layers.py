@@ -126,9 +126,10 @@ def _flash_fwd(q, k, v, q_offset, causal: bool, window: int, soft_cap: float,
         n = qb.shape[1]
         q_pos = q_offset[:, None].long() + q0 + \
             torch.arange(n, device=q.device)[None, :]            # (B, qc)
-        m = torch.full((B, KV, g, n), -torch.inf, device=q.device)
-        l = torch.zeros((B, KV, g, n), device=q.device)
-        o = torch.zeros((B, KV, g, n, vd), device=q.device)
+        # the running (m, l, o) start from the first block's terms (what
+        # -inf, 0 and 0 would give, exactly), so that on a mesh they are
+        # laid out as the blocks are and no global-shaped buffer is made
+        m = l = o = None
         for k0 in range(0, Sk, kc):
             kb = k[:, k0:k0 + kc].float()
             vb = v[:, k0:k0 + kc]
@@ -137,15 +138,21 @@ def _flash_fwd(q, k, v, q_offset, causal: bool, window: int, soft_cap: float,
                 s = soft_cap * torch.tanh(s / soft_cap)
             mask = _block_mask(q_pos, k0, kb.shape[1], causal, window)
             s = torch.where(mask, s, -torch.inf)
-            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_new = s.amax(dim=-1) if m is None else \
+                torch.maximum(m, s.amax(dim=-1))
             # guard fully-masked rows
             m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
             p = torch.exp(s - m_safe[..., None])
             p = torch.where(mask, p, 0.0)
-            corr = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
-            l = l * corr + p.sum(dim=-1)
-            o = o * corr[..., None] + torch.einsum(
-                "bkgqs,bskh->bkgqh", p.to(v.dtype).float(), vb.float())
+            pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v.dtype).float(),
+                              vb.float())
+            if m is None:
+                l, o = p.sum(dim=-1), pv
+            else:
+                corr = torch.where(torch.isneginf(m), 0.0,
+                                   torch.exp(m - m_safe))
+                l = l * corr + p.sum(dim=-1)
+                o = o * corr[..., None] + pv
             m = m_new
         o = o / torch.clamp(l[..., None], min=1e-30)
         outs.append(o.permute(0, 3, 1, 2, 4).to(v.dtype))    # (B, qc, KV, g, vd)
@@ -161,7 +168,9 @@ def _block_mask(q_pos, k0: int, n_k: int, causal: bool, window: int):
     `q_pos` (B, qc) sees."""
     B, n_q = q_pos.shape
     kpos = k0 + torch.arange(n_k, device=q_pos.device)
-    mask = torch.ones((B, n_q, n_k), dtype=torch.bool, device=q_pos.device)
+    # built from q_pos, so that on a mesh it is laid out as q_pos is
+    mask = torch.ones_like(q_pos[:, :, None].expand(B, n_q, n_k),
+                           dtype=torch.bool)
     if causal:
         mask = mask & (kpos[None, None, :] <= q_pos[:, :, None])
     if window > 0:
@@ -298,6 +307,7 @@ def flash_attention(
     and computes no lse."""
     args = _flash_args(q, k, causal, q_offset, window, soft_cap, scale,
                        q_chunk, kv_chunk)
+    k, v = SH.expand_kv(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, *args)
@@ -314,6 +324,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset=None,
     it."""
     args = _flash_args(q, k, causal, q_offset, window, soft_cap, scale,
                        q_chunk, kv_chunk)
+    k, v = SH.expand_kv(q, k, v)
     return _flash_fwd(q, k, v, *args, need_lse=False)[0]
 
 
@@ -327,12 +338,22 @@ def lm_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return SH.constrain(x @ table.to(x.dtype).t(), ("batch", None, "vocab"))
 
 
+def _gold_nll(logits, labels):
+    """(lse - gold logit) per row of logits (..., V) in f32. On a mesh the
+    logits are laid out as `lm_logits` lays them out, ("batch", ...,
+    "vocab"), and the labels are laid out as their rows, so that under the
+    TP rules both reductions over the vocabulary run on its shards
+    (`sharding.logsumexp`, `sharding.gather`): no rank holds a row's every
+    logit."""
+    labels = SH.constrain(labels.long(),
+                          ("batch",) + (None,) * (labels.ndim - 1))
+    lse = SH.logsumexp(logits, dim=-1)
+    return lse - SH.gather(logits, -1, labels[..., None])[..., 0]
+
+
 def _xent_chunk_sum(x, table, labels, mask):
     """Sum of masked (lse - gold) over one chunk, logits in f32."""
-    logits = (x @ table.to(x.dtype).t()).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return ((lse - gold) * mask).sum()
+    return (_gold_nll(lm_logits(x, table).float(), labels) * mask).sum()
 
 
 def chunked_softmax_xent(x, table, labels, mask=None, chunk: int = 256):
@@ -351,6 +372,11 @@ def chunked_softmax_xent(x, table, labels, mask=None, chunk: int = 256):
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
     mask = mask.float()
+    # the table laid out by "vocab": split over the model axis under the
+    # TP rules, whole under FSDP's (gathered on use, as FSDP gathers a
+    # layer's weights), so that each chunk's logits keep x's batch layout
+    # and no rank computes every row's
+    table = SH.constrain(table, ("vocab", None))
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for s0 in range(0, S, c):
         sl = slice(s0, s0 + c)
@@ -362,10 +388,7 @@ def chunked_softmax_xent(x, table, labels, mask=None, chunk: int = 256):
 
 
 def cross_entropy(logits, labels, mask=None):
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    nll = _gold_nll(logits.float(), labels)
     if mask is None:
         return nll.mean()
     mask = mask.float()

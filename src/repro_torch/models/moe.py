@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import partitioning as PT
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -88,6 +89,24 @@ def _rank_in_expert(e_flat: torch.Tensor, E: int) -> torch.Tensor:
     return ranks.to(torch.int32)
 
 
+def _slot_plan(e_flat: torch.Tensor, E: int, C: int, k: int):
+    """One group's slot plan from its (G, A) expert ids, A = T * k in
+    choice order: (slot_of (G, A), the slot each assignment fills, clamped
+    for a dropped one; keep (G, A), whether it is kept; slot_tok (G, E *
+    C), the token that fills each (expert, slot), -1 for none)."""
+    G, A = e_flat.shape
+    ranks = _rank_in_expert(e_flat, E)
+    keep = ranks < C
+    slot_of = e_flat.long() * C + torch.clamp(ranks, max=C - 1)
+    tok = torch.arange(A // k, device=e_flat.device)[:, None].expand(
+        A // k, k).reshape(A)
+    slot_tok = torch.full((G, E * C), -1, dtype=torch.long,
+                          device=e_flat.device)
+    slot_tok.scatter_reduce_(1, slot_of, torch.where(keep, tok[None, :], -1),
+                             reduce="amax")
+    return slot_of, keep, slot_tok
+
+
 class _Dispatch(torch.autograd.Function):
     """xe[g, s] = xt[g, slot_tok[g, s]], 0 where the slot holds no token.
 
@@ -106,7 +125,7 @@ class _Dispatch(torch.autograd.Function):
         ctx.k, ctx.T = k, T
         ctx.mesh = SH.current()
         return torch.where((slot_tok >= 0)[..., None],
-                           torch.gather(xt, 1, ids), 0)
+                           SH.gather(xt, 1, ids), 0)
 
     @staticmethod
     def backward(ctx, dxe):
@@ -116,7 +135,7 @@ class _Dispatch(torch.autograd.Function):
         with ctx.mesh:
             dx = None
             for ki in range(k):
-                part = torch.gather(dxe, 1, slot_of[:, ki::k, None].expand(
+                part = SH.gather(dxe, 1, slot_of[:, ki::k, None].expand(
                     G, T, d))
                 part = torch.where(keep[:, ki::k, None], part.float(), 0.0)
                 dx = part if dx is None else dx.add_(part)
@@ -165,8 +184,13 @@ def moe_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         C = min(T, max(8, 4 * (-(-T * k // E))))
     dev = x.device
 
-    xt = x.reshape(G, T, d)
-    logits = torch.einsum("gtd,de->gte", xt.float(), p["router"].float())
+    # the groups laid out on "batch", each whole on its rank: the routing,
+    # the slot plan (`sharding.per_group`), the dispatch and the combine
+    # (`sharding.gather`) run on the local shards
+    xt = SH.constrain(x.reshape(G, T, d), ("batch", None, None))
+    logits = SH.constrain(torch.einsum("gtd,de->gte", xt.float(),
+                                       p["router"].float()),
+                          ("batch", None, None))
     if router_type == "sigmoid":
         scores = torch.sigmoid(logits)
     else:
@@ -175,38 +199,42 @@ def moe_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     top_w = top_w / torch.clamp(top_w.sum(dim=-1, keepdim=True), min=1e-9)
 
     A = T * k
-    e_flat = top_i.reshape(G, A)
-    ranks = _rank_in_expert(e_flat, E)
-    keep = ranks < C
-    pos_c = torch.clamp(ranks, max=C - 1)
-    tok = torch.arange(T, device=dev)[:, None].expand(T, k).reshape(A)
-    slot_of = e_flat * C + pos_c                                  # (G, A)
+    slot_of, keep, slot_tok = SH.per_group(
+        lambda e: _slot_plan(e.reshape(-1, A), E, C, k), top_i)
     w_keep = torch.where(keep, top_w.reshape(G, A), 0.0)
 
-    # --- slot plan: which token fills each (expert, slot), -1 for none ---
-    slot_tok = torch.full((G, E * C), -1, dtype=torch.long, device=dev)
-    slot_tok.scatter_reduce_(1, slot_of, torch.where(keep, tok[None, :], -1),
-                             reduce="amax")
-
-    # --- dispatch: a direct (G, E, C, d) gather ---------------------------
-    xt = SH.constrain(xt, ("batch", None, None))
+    # --- dispatch: a direct (G, E, C, d) gather, each rank filling the
+    # slots of its own experts (the plan laid out as they are) -------------
+    slot_tok = SH.even_split(SH.constrain(slot_tok, ("batch", "expert")), 1,
+                             E)
     xe = _Dispatch.apply(xt, slot_tok, slot_of, keep, k)
     xe = SH.constrain(xe.reshape(G, E, C, d), ("batch", "expert", None, None))
-    xe = xe.transpose(0, 1).reshape(E, G * C, d)
+    # the experts' own layout, as their weights are laid out
+    # (`partitioning`: E over every axis it divides, deepseek-v3's 256 over
+    # the whole mesh): the move of the groups' slots to their experts, an
+    # all-to-all; where E does not split, the slots stay on "batch"
+    xe = SH.constrain(xe.transpose(0, 1).reshape(E, G * C, d),
+                      ("expert", "batch", None))
 
     # --- expert FFN: batched over the experts -----------------------------
-    g = torch.bmm(xe, p["gate"].to(x.dtype))
-    u = torch.bmm(xe, p["up"].to(x.dtype))
-    h = _constrain_ecf(F.silu(g.float()).to(x.dtype) * u, G)
-    ye = _constrain_ecf(torch.bmm(h, p["down"].to(x.dtype)), G)  # (E, GC, d)
+    # the weights in the layout they are used in (`partitioning`)
+    use = PT.expert_use_specs(cfg, G * C)
+    wg, wu, wd = (p[n].to(x.dtype) if use is None else
+                  SH.constrain(p[n].to(x.dtype), use[n])
+                  for n in ("gate", "up", "down"))
+    g = torch.bmm(xe, wg)
+    u = torch.bmm(xe, wu)
+    h = F.silu(g.float()).to(x.dtype) * u
+    ye = _constrain_ecf(torch.bmm(h, wd), G)                     # (E, GC, d)
     ye_flat = ye.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
 
     # --- combine: k strided gathers back to the tokens --------------------
-    y = torch.zeros((G, T, d), dtype=torch.float32, device=dev)
+    y = None
     for ki in range(k):
         idx = slot_of[:, ki::k]                                   # (G, T)
-        part = torch.gather(ye_flat, 1, idx[..., None].expand(G, T, d))
-        y = y + part.float() * w_keep[:, ki::k, None]
+        part = SH.gather(ye_flat, 1, idx[..., None].expand(G, T, d))
+        part = part.float() * w_keep[:, ki::k, None]
+        y = part if y is None else y + part
     y = SH.constrain(y.to(x.dtype).reshape(B, S, d), ("batch", "seq_sp", None))
 
     if cfg.num_shared_experts and "shared" in p:

@@ -335,3 +335,15 @@ def test_deepseek_state_crosses_between_the_packages_bit_for_bit(tmp_path):
     back = JFT.CheckpointManager(tmp_path / "port").restore(state)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(state)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_a_0d_numpy_leaf_keeps_its_shape(tmp_path):
+    """The simulator's `FinetuneCheckpointer` commits {"units_done":
+    np.asarray(n)}: restored with a None template it comes back a 0-d
+    array, as the reference's restore gives it (a 1-d one would make
+    `int()` of it deprecated)."""
+    for mod in (FT, JFT):
+        mgr = mod.CheckpointManager(tmp_path / mod.__name__)
+        mgr.save(1, {"units_done": np.asarray(1234)})
+        got = mgr.restore({"units_done": None})["units_done"]
+        assert np.shape(got) == () and int(got) == 1234

@@ -295,16 +295,16 @@ def test_constrain_lays_out_a_transposed_activation(spawned):
     assert max(r["rel"]) <= 1e-5, r
 
 
-# the ops that run replicated in each decode step on the 2x4 mesh: qwen3's
-# and danube's smoke k/v heads split unevenly on the 4-way model axis
-# (reshape), deepseek's MoE slot plan (the scatters) and its dispatch,
-# combine and routing gathers
+# the ops that run replicated in each decode step on the 2x4 mesh: none.
+# qwen3's and danube's smoke k/v heads, which split unevenly on the 4-way
+# model axis, are gathered before their reshape (`sharding.even_split`),
+# and deepseek's MoE slot plan, dispatch and combine run on the shards
+# (`sharding.per_group`, `sharding.gather`)
 FALLBACK_OPS = {
-    "qwen3-8b": {"reshape"},
-    "deepseek-v3-671b": {"gather", "scatter_", "scatter_add_",
-                         "scatter_reduce_"},
-    "h2o-danube-1.8b": {"reshape"},
-    "qwen3-8b-int8": {"reshape"},
+    "qwen3-8b": set(),
+    "deepseek-v3-671b": set(),
+    "h2o-danube-1.8b": set(),
+    "qwen3-8b-int8": set(),
 }
 
 
