@@ -265,6 +265,25 @@ Then the seamless objects are freed:
      solo round at phase 3's operating point (8 slots, its mean context)
      beside the graphed round phase 3 measured. Every number here is the
      cost model's prediction; no kernel runs.
+ 23. the cluster layer (`core/cluster.py` under `core/experiment.py`'s
+     `ExperimentSpec`) on H100 instances: the reference's saved specs
+     `examples/specs/spike_pooled.json` (pooled prefill,
+     `predicted_latency` routing, autoscaling) and `churn_spike.json`
+     (kills with warnings, checkpoints, KV migration, the degradation
+     ladder), loaded unchanged but for `sim.tp`, set to 1 (one H100 an
+     instance, as phase 22), each in separate and in harli mode, once with
+     `H100_CONSTANTS` and once with the constants fitted after phase 12:
+     per run goodput and throughput, SLO, TTFT and TPOT attainment, the
+     TTFT p99 and its three stage p99s, finetune throughput, the QoS
+     violation share, the fleet and the prefill pool (final and peak),
+     the scale actions, failures, preemptions, migrated, requeued and
+     shed requests, checkpoint commits and the wall time; harli over
+     separate in finetune throughput and in goodput. Asserted: a harli
+     rerun of each spec gives the identical result, `offered == routed +
+     rejected` (the router's `check_conservation` also runs in every
+     epoch), goodput <= throughput, the fleet never under `min_decode`,
+     and on `churn_spike` at least one kill and one checkpoint commit.
+     Every number is the cost model's prediction; no kernel runs.
 The second line from the end lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the repository
 around it, the script exits nonzero and prints no result.
@@ -4393,6 +4412,100 @@ def phase22_simulator(phase3, fitted):
         f"graphed round median {1e3 * phase3['round_s']:.3f} ms; card {card}")
 
 
+# ------------------------------------------------------ the cluster --
+# the saved specs phase 23 runs; the second must kill an instance and
+# commit a checkpoint
+CLUSTER_SPECS = ("spike_pooled", "churn_spike")
+
+
+def cluster_run_line(stem, name, mode, res, wall, card):
+    """One run of phase 23, as a log line."""
+    s = res.stats
+    acts = collections.Counter(d.action for d in res.decisions
+                               if d.action != "none")
+    return (f"cluster {stem} {name} {mode}: goodput {s.goodput:.4f} req/s, "
+            f"throughput {s.throughput:.4f} req/s, attainment SLO "
+            f"{s.slo_attainment:.4f} TTFT {s.ttft_attainment:.4f} TPOT "
+            f"{s.tpot_attainment:.4f}, TTFT p99 {s.ttft_p99:.3f} s = "
+            f"queue {s.ttft_queue_p99:.3f} + prefill "
+            f"{s.ttft_prefill_p99:.3f} + decode-wait "
+            f"{s.ttft_decode_wait_p99:.3f} (stage p99s), ft_throughput "
+            f"{res.ft_throughput:.4f} (iterations/s x minibatch), QoS "
+            f"violations {res.qos_violation_frac:.4f}, fleet "
+            f"{res.final_fleet} final / {res.peak_fleet} peak, prefill pool "
+            f"{res.final_prefill} final / {res.peak_prefill} peak, scale "
+            f"actions {sum(acts.values())} {dict(sorted(acts.items()))}, "
+            f"offered {s.offered} routed {s.routed} rejected {s.rejected}, "
+            f"failures {res.failures} preemptions {res.preemptions} "
+            f"migrated {res.migrated_requests} requeued "
+            f"{res.requeued_requests} shed {res.shed_requests}, checkpoint "
+            f"commits {res.checkpoint_commits}, wall {wall:.2f} s; card "
+            f"{card}")
+
+
+def check_cluster_run(label, res, min_decode, churn):
+    s = res.stats
+    if s.offered != s.routed + s.rejected:
+        raise AssertionError(f"{label}: offered {s.offered} != routed "
+                             f"{s.routed} + rejected {s.rejected}")
+    if s.goodput > s.throughput:
+        raise AssertionError(f"{label}: goodput {s.goodput} > throughput "
+                             f"{s.throughput}")
+    least = min((n for _, n, _ in res.fleet_timeline), default=0)
+    if least < min_decode:
+        raise AssertionError(f"{label}: the fleet fell to {least} serving "
+                             f"instances, under min_decode {min_decode}")
+    if churn and (res.failures < 1 or res.checkpoint_commits < 1):
+        raise AssertionError(f"{label}: {res.failures} kills and "
+                             f"{res.checkpoint_commits} checkpoint commits")
+
+
+def phase23_cluster(fitted):
+    """The cluster layer on H100 instances (see the module's docstring,
+    23), with the committed and this run's fitted cost constants."""
+    from repro_torch.core.costmodel import H100_CONSTANTS, InstanceSpec
+    from repro_torch.core.experiment import ExperimentSpec
+    card = card_line()
+    for stem in CLUSTER_SPECS:
+        saved = ExperimentSpec.load(ROOT / "examples" / "specs"
+                                    / f"{stem}.json")
+        spec = dataclasses.replace(saved, sim=dataclasses.replace(
+            saved.sim, tp=1))
+        min_decode = spec.cluster.autoscaler.min_decode
+        log(f"cluster {stem}: examples/specs/{stem}.json with sim.tp "
+            f"{saved.sim.tp} -> 1 (one H100 an instance, as phase 22), "
+            f"{spec.duration_s:.0f} s at {spec.mean_rps:g} rps "
+            f"({len(spec.requests())} requests), {spec.cluster.n_initial} "
+            f"instances at first, policy {spec.cluster.router.policy}, "
+            f"prefill {spec.cluster.resolved_mode()}; the cost model's "
+            f"prediction, no kernel runs; card {card}")
+        for name, consts in (("committed", H100_CONSTANTS),
+                             ("fitted", fitted)):
+            inst = InstanceSpec(consts=consts)
+            out = {}
+            for mode in ("separate", "harli"):
+                t0 = time.perf_counter()
+                res = spec.with_mode(mode).run(spec=inst)
+                wall = time.perf_counter() - t0
+                out[mode] = res
+                log(cluster_run_line(stem, name, mode, res, wall, card))
+                check_cluster_run(f"cluster {stem} {name} {mode}", res,
+                                  min_decode, stem == "churn_spike")
+            h, s_ = out["harli"], out["separate"]
+            log(f"cluster {stem} {name}: harli / separate finetune "
+                f"throughput {h.ft_throughput / s_.ft_throughput:.4f}x at "
+                f"{h.stats.goodput / max(s_.stats.goodput, 1e-9):.4f}x "
+                f"goodput; card {card}")
+            if name == "committed":
+                again = spec.with_mode("harli").run(spec=inst)
+                same = repr(dataclasses.asdict(again)) == \
+                    repr(dataclasses.asdict(h))
+                log(f"cluster {stem}: harli rerun identical: {same}")
+                if not same:
+                    raise AssertionError(f"cluster {stem}: a second harli "
+                                         "run of the spec differs")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4530,7 +4643,10 @@ def main() -> int:
     log(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     phase22_simulator(llama.pop("phase3"), fitted)
-    log(f"phase 22 took {time.perf_counter() - t_phase:.1f} s; whole run "
+    log(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase23_cluster(fitted)
+    log(f"phase 23 took {time.perf_counter() - t_phase:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     llama["k1"]["launches_by_path"].update(serve_danube=danube["launches"],
                                            **mixtral["k1"],

@@ -367,22 +367,27 @@ def _train_gap(cfg):
 def _unscanned_gap(cfg, first: bool):
     """An unscanned MLA layer (deepseek-v3's dense "pre" layer, its MTP
     block). The port's checkpoint recomputes the pre layer's forward,
-    which the reference, scanning only the stack, never does; its flash
-    backward computes dk and dv, which XLA leaves out there (the pre
-    layer's K/V carry no adapter and its input needs no gradient); and,
-    as in the scanned layers, its flash scores once more. Both unscanned
-    layers then read one dot fewer than the reference: a (T, r) x (r, d)
-    product, 2 T r d, of a LoRA whose B maps rank r to d_model (o's or
-    down's; the FLOPs alone do not tell which). The MTP block's forward
-    is not recomputed, and its K/V feed a layer with adapters."""
+    which the reference, scanning only the stack, never does, up to the
+    last tensor its backward saves: torch's non-reentrant checkpoint stops
+    early there, so the layer's last dot, the second product of down's
+    LoRA ((T, r) x (r, d), whose output nothing saves), is not rerun
+    (`test_pre_layer_recompute_stops_before_downs_second_product`); its
+    flash backward computes dk and dv, which XLA leaves out there (the pre
+    layer's K/V carry no adapter and its input needs no gradient); and, as
+    in the scanned layers, its flash scores once more. The MTP block's
+    forward is not recomputed (it has no adapters), and its K/V feed a
+    layer with adapters. Its head differs by one row of logits a sequence:
+    the reference computes the MTP logits at all S - 1 positions and then
+    drops the last (`mtp_logits[:, :-1]`), a dead (B, d) x (d, V) product
+    that XLA keeps; the port slices the hidden state first
+    (`h[:, :-1]`)."""
     B, S, d, r = SMOKE_B, SMOKE_S, cfg.d_model, cfg.lora.rank
     T, H, ff = B * S, cfg.num_heads, cfg.d_ff
     qk, qr, kr = cfg.mla_nope_dim + cfg.mla_rope_dim, cfg.mla_q_rank, \
         cfg.mla_kv_rank
     vd, rope = cfg.mla_v_dim, cfg.mla_rope_dim
-    missing = -2 * T * r * d
     if not first:
-        return missing
+        return -2 * B * d * cfg.vocab_size
     lora = lambda n_in, n_out: 2 * T * n_in * r + 2 * T * r * n_out  # noqa
     forward = (2 * T * d * qr + 2 * T * qr * H * qk + lora(qr, H * qk)
                + 2 * T * d * (kr + rope) + 2 * T * kr * H * (cfg.mla_nope_dim
@@ -391,9 +396,10 @@ def _unscanned_gap(cfg, first: bool):
                + 2 * T * H * vd * d + lora(H * vd, d)
                + 2 * (2 * T * d * ff + lora(d, ff))
                + 2 * T * ff * d + lora(ff, d))
+    early_stop = -2 * T * r * d
     dk_dv = 2 * B * H * S * S * (qk + vd)
     scores = 2 * B * H * S * S * qk
-    return forward + dk_dv + scores + missing
+    return forward + early_stop + dk_dv + scores
 
 
 def _ssm_gap(cfg):
@@ -440,6 +446,25 @@ def test_train_flops_gap_is_named(case):
     assert gap == _train_gap(cfg)
     # the attention families count more than the reference, mamba2 less
     assert gap < 0 if cfg.family == "ssm" else gap > 0
+
+
+def test_pre_layer_recompute_stops_before_downs_second_product():
+    """The pre layer's term of `_unscanned_gap` that the reference does not
+    explain: with the checkpoint's early stop off, the port's step counts
+    exactly down's second LoRA product (2 T r d) more, and nothing else;
+    the stack's MoE layers end on no dot, so they count the same."""
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+    cfg = tconfigs.smoke_config("deepseek-v3-671b")
+    T, r, d = SMOKE_B * SMOKE_S, cfg.lora.rank, cfg.d_model
+    flops = {}
+    for case, over in (("pre", {}),
+                       ("stack", {"first_dense_layers": 0, "mtp": False})):
+        for early in (True, False):
+            with set_checkpoint_early_stop(early):
+                flops[case, early] = _port_flops("deepseek-v3-671b",
+                                                 "train", **over)
+    assert flops["pre", False] - flops["pre", True] == 2 * T * r * d
+    assert flops["stack", False] == flops["stack", True]
 
 
 # ------------------------------------- (d) the counters are per device --

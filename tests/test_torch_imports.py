@@ -44,6 +44,18 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_port_registry_resolves_only_port_policies():
+    """The port's policy registry fills itself from the port's policies
+    (`_ensure_builtins`), never from the reference's."""
+    from repro_torch.core import api
+    for kind in api.KINDS:
+        names = api.available_policies(kind)
+        assert names, kind
+        for name in names:
+            cls = api.resolve_policy(kind, name)
+            assert cls.__module__.startswith("repro_torch"), (kind, name)
+
+
 def test_port_configs_match_reference():
     """The port's copies of the configs equal the reference's, field by
     field (repr covers every field, the LoRA config included)."""
