@@ -45,8 +45,11 @@ Phases, in order; any failure ends the run with a nonzero exit:
      two iterations eager and two replayed, in turns, synchronized per
      unit: medians by kind, K2's 672 launches per iteration either way;
   7. co-located serving: `ColocatedRunner(k_max=6, use_kernels=True)`
-     captures the decode graph and the unit graphs (`precompile`), rounds
-     with k = 0 and k > 0 units replayed and profiled, the latency
+     captures the decode graph on the decode partition of the SM split
+     and the unit graphs on the unit partition (`precompile`; the split's
+     sizes and each graph pool's bytes printed), rounds with k = 0 and
+     k > 0 units (decode and the units at once, one partition each)
+     replayed and profiled, the latency
      predictor fit from them, and 16 requests (then more waves of 16,
      until the serving has run an iteration's worth of units and an OPT)
      served through graphed rounds and the QoS scheduler (the target by
@@ -56,6 +59,24 @@ Phases, in order; any failure ends the run with a nonzero exit:
      spec with the committed constants, held beside the profile fit (solo
      and co-located error on the measured points, mean k under 40 ms), and
      16 requests served co-located with it under the same target.
+ 7b. the SM split (`core/partition.py`) on full-width llama3-8b: a probe
+     kernel's SM ids, launched eagerly on each partition's stream and
+     replayed from a graph captured there, held within the partition
+     (as many SMs as it has, the two disjoint); the paper's Fig. 9: the
+     graphed solo round (8 slots, ctx 320 and 512, CUDA events) on decode
+     partitions of 8 to 120 SMs, each timed in 3 turns with the whole
+     card's round, and the least share within 5 % of the whole card at
+     both contexts (the measured bw_sat_quantum, which the cost-model fit
+     after phase 12 takes; the committed one is the paper's 0.45, which
+     gives the same split); an overlapped runner and a sequential one
+     (`split=False`), each graph pool's bytes; an overlapped round of 6 units against the
+     sequential round, graphed and eager, logits, cache and finetune
+     state bit for bit; an A/B of sequential and overlapped graphed
+     rounds at 8 slots, ctx 320, k = 1, 3, 6 starting at a FWD, BWD,
+     HEAD and OPT unit, 20 rounds each in turns: median and p90, and the
+     decode part's own time inside the round (CUDA events on its
+     stream); K2 at gate/up on the unit partition's stream against its
+     plain version and the whole card's launch (bit-equal), timed.
 Then the llama3 objects are freed and the peak-memory count reset:
   8. the SSD scan kernels (K3) against their plain torch version on the
      card at mamba2-780m's prefill shapes (nh 48, hd 64, ds 128, chunk 256;
@@ -115,8 +136,9 @@ Then the mamba2 objects are freed:
      phase 7, with a graphed 6-unit round bit-equal to the eager one.
 Then the cost model's H100 constants are fitted by least squares from the
 graphed solo rounds of phases 7 and 10 (mixtral's are printed, not fitted),
-phase 6's FWD and BWD units and phase 7's co-located rounds, and the
-committed and fitted constants' error printed at every profiled point.
+phase 6's FWD and BWD units and phase 7's co-located (overlapped) rounds,
+bw_sat_quantum from phase 7b's sweep, and the committed and fitted
+constants' error printed at every profiled point.
 Then the mixtral objects are freed:
  13. the finetune entry point, `launch/train.py`'s `main(argv)` on
      full-width llama3-8b with `--use-kernels` (micro-batch 2 x 1024): 6
@@ -1185,10 +1207,21 @@ def serve_colocated(tag, cfg, params, eng, solo_round_s, seq_len):
                                use_kernels=True)
     if not runner.graphs:
         raise AssertionError("the runner does not replay CUDA graphs")
+    if runner.split is None:
+        raise AssertionError("the runner does not run on an SM split")
     torch.cuda.reset_peak_memory_stats()
-    captured(f"{tag} co-located rounds (the decode step and one graph per "
-             f"unit of an iteration, one pool)",
+    captured(f"{tag} co-located rounds (the decode step on the decode "
+             f"partition and on the whole card, one graph per unit of an "
+             f"iteration on the unit partition, three pools)",
              lambda: runner.precompile(eng.cache, ft))
+    pools = pool_bytes([runner._decode.pool, runner._units.pool,
+                        runner._solo.pool])
+    log(f"{tag}: rounds with k > 0 run decode on {runner.split.decode.sms} "
+        f"SMs and their units on {runner.split.units.sms}, at once; the "
+        f"graph pools hold, of memory_reserved: decode "
+        f"{pools[runner._decode.pool] / 1e6:.1f} MB, the units "
+        f"{pools[runner._units.pool] / 1e6:.1f} MB, the whole card's "
+        f"decode (k = 0) {pools[runner._solo.pool] / 1e6:.1f} MB")
     t0 = time.perf_counter()
     solo, colo, ft = C.profile_rounds(
         runner, eng.cache, ft, batch_sizes=(1, 4, 8),
@@ -1338,6 +1371,290 @@ def phase7_colocated(cfg, params, eng, solo_round_s, seq_len, tag="colo"):
     return k1, k2, out
 
 
+# ------------------------------------------------------- 7b. the split --
+SPLIT_CTX = (320, 512)        # the Fig. 9 sweep's contexts (8 slots)
+SPLIT_WITHIN = 0.05           # "saturated": within 5 % of the full card
+SPLIT_AB_ROUNDS = 20          # rounds of each mode per A/B cell
+SWEEP_REPEATS = 3             # the Fig. 9 sweep's turns at each size
+SWEEP_ITERS = 8               # replays timed in each turn
+SPLIT_AB_KS = (1, 3, 6)
+PROBE_CTAS = 3 * 132          # probe launches: 3 CTAs per SM of the card
+
+
+def pool_bytes(pools):
+    """Reserved bytes of each graph pool, from the allocator's segments."""
+    out = {p: 0 for p in pools}
+    for seg in torch.cuda.memory_snapshot():
+        pid = tuple(seg.get("segment_pool_id", ()))
+        if pid in out:
+            out[pid] += seg["total_size"]
+    return out
+
+
+def split_probe(sp):
+    """The SM ids of the probe, launched eagerly on each partition's stream
+    and replayed from a graph captured on it: each replay within its
+    partition's eager set, that set as large as the partition, the two
+    disjoint."""
+    from repro_torch.core import graphs as G
+    from repro_torch.core import partition as SP
+    sets = {}
+    for name, part in (("decode", sp.decode), ("units", sp.units)):
+        eager = set(SP.smids(part.stream, PROBE_CTAS))
+        out = torch.full((PROBE_CTAS,), -1, dtype=torch.int32, device="cuda")
+        G.on_side_stream(lambda: SP.smid_probe(out), part.stream)
+        graph = G.capture(lambda: SP.smid_probe(out),
+                          torch.cuda.graph_pool_handle(), part.stream)
+        part.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(part.stream):
+            out.fill_(-1)
+            graph.replay()
+        torch.cuda.current_stream().wait_stream(part.stream)
+        replayed = set(out.tolist())
+        sets[name] = eager
+        log(f"split probe: {name} partition, {part.sms} SMs: the eager "
+            f"probe ran on {len(eager)} SMs, ids {min(eager)}-{max(eager)} "
+            f"({sorted(eager)}); the graph captured on its stream and "
+            f"replayed there on {len(replayed)} SMs, within the eager set "
+            f"{replayed <= eager}")
+        if len(eager) != part.sms or not replayed <= eager or -1 in replayed:
+            raise AssertionError(f"split: the {name} partition's probe ran "
+                                 "outside its SMs")
+    both = sets["decode"] & sets["units"]
+    log(f"split probe: the partitions share {len(both)} SMs")
+    if both:
+        raise AssertionError("split: the partitions are not disjoint")
+
+
+def fig9_sweep(cfg, params, eng):
+    """The paper's Fig. 9 on the card: the graphed solo decode round (8
+    slots, contexts SPLIT_CTX) on decode partitions of one granule up to
+    the largest split, each against the whole card's round, captured and
+    timed on a stream of its own as each partition's is. Device time by
+    CUDA events, median of SWEEP_ITERS replays; at each size the partition
+    and the whole card are timed in turns, SWEEP_REPEATS times, and the
+    ratio is the median of the repeats' ratios. Returns the least share
+    whose ratio is within SPLIT_WITHIN at every context."""
+    from repro_torch.core import partition as SP
+    from repro_torch.core.costmodel import H100_CONSTANTS
+    from repro_torch.serving.engine import DecodeGraph
+    sms, granule = SP.device_sms(torch.cuda.current_device())
+    tok = torch.zeros((8,), dtype=torch.int32, device="cuda")
+
+    def timed(g, stream):
+        out = {}
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            for ctx in SPLIT_CTX:
+                pos = torch.full((8,), ctx, dtype=torch.int32, device="cuda")
+                out[ctx] = time_ms(lambda: g(tok, pos, eng.cache),
+                                   iters=SWEEP_ITERS)
+        torch.cuda.current_stream().wait_stream(stream)
+        return out
+
+    side = torch.cuda.Stream()
+    whole = DecodeGraph(params, cfg, eng.cache, use_kernels=True,
+                        stream=side)
+    least = {"median": 1.0, "best": 1.0, "worst": 1.0}
+    for n in range(granule, sms - granule + 1, granule):
+        sp = SP.Split("cuda", n)
+        try:
+            g = DecodeGraph(params, cfg, eng.cache, use_kernels=True,
+                            stream=sp.decode.stream)
+            reps, refs = [], []
+            for _ in range(SWEEP_REPEATS):
+                ref = timed(whole, side)
+                got = timed(g, sp.decode.stream)
+                refs.append(ref)
+                reps.append({c: got[c] / ref[c] for c in SPLIT_CTX})
+            del g
+        finally:
+            sp.close()
+        ratio = {how: {c: pick(r[c] for r in reps) for c in SPLIT_CTX}
+                 for how, pick in (("median", statistics.median),
+                                   ("best", min), ("worst", max))}
+        share = sp.decode.sms / sms
+        for how, r in ratio.items():
+            if least[how] == 1.0 and \
+                    all(v <= 1 + SPLIT_WITHIN for v in r.values()):
+                least[how] = share
+        log(f"split fig9: decode on {sp.decode.sms} SMs (share {share:.4f}): "
+            + ", ".join(
+                f"ctx {c} {ratio['median'][c]:.3f} x the card (repeats "
+                f"{ratio['best'][c]:.3f}-{ratio['worst'][c]:.3f}; the card "
+                f"{min(r[c] for r in refs):.3f}-{max(r[c] for r in refs):.3f}"
+                f" ms)" for c in SPLIT_CTX)
+            + f"; within {SPLIT_WITHIN:.0%}: "
+            f"{all(v <= 1 + SPLIT_WITHIN for v in ratio['median'].values())}")
+    split = SP.split_sizes(sms, granule, H100_CONSTANTS.bw_sat_quantum)[0]
+    log(f"split fig9: the least share within {SPLIT_WITHIN:.0%} of the whole "
+        f"card at both contexts: {least['median']:.4f} by the median ratio, "
+        f"{least['best']:.4f} by each size's best repeat, "
+        f"{least['worst']:.4f} by its worst ({SWEEP_REPEATS} repeats of "
+        f"{SWEEP_ITERS} replays in turns with the card); the committed "
+        f"bw_sat_quantum {H100_CONSTANTS.bw_sat_quantum} gives decode {split} "
+        f"SMs (share {split / sms:.4f})")
+    return least["median"]
+
+
+class TimedDecode:
+    """A runner's decode graph with CUDA events around each call, on the
+    stream it runs on: the decode part's own time inside a round."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.marks = []
+
+    def __call__(self, *args):
+        s = torch.cuda.current_stream()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record(s)
+        out = self.inner(*args)
+        e1.record(s)
+        self.marks.append((e0, e1))
+        return out
+
+
+def phase7b_split(cfg, params, eng, seq_len):
+    """The SM split on full-width llama3-8b: the probe, the Fig. 9 sweep,
+    sequential and overlapped graphed rounds bit for bit and in an A/B by
+    unit kind, K2 at gate/up on the unit partition, the graph pools'
+    bytes. Returns the sweep's share."""
+    from repro_torch.core import colocation as C
+    from repro_torch.core import partition as SP
+    from repro_torch.core.costmodel import H100_CONSTANTS
+    from repro_torch.kernels import lora_matmul as K2
+    from repro_torch.training import peft as P
+    from repro_torch.training.data import (DataConfig, Prefetcher,
+                                           SyntheticCorpus)
+    # ------------------------------------------------ 7b. the SM split --
+    pc = P.PeftConfig(micro_batch=2, seq_len=seq_len, accum=1)
+    staged = Prefetcher(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, seq_len, 2, seed=1, **stub_inputs(cfg, seq_len))
+    ).batches(), pc.n_stage).stacked()
+    ft = P.init_ft_state(cfg, pc, params, 1, staged)
+    ovl = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=6,
+                            use_kernels=True)
+    seq = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=6,
+                            use_kernels=True, split=False)
+    eager = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=6,
+                              use_kernels=True, graphs=False, split=False)
+    sp = ovl.split
+    sms, granule = SP.device_sms(torch.cuda.current_device())
+    log(f"split: decode on {sp.decode.sms} SMs, the units on {sp.units.sms} "
+        f"(split_sizes({sms}, {granule}, bw_sat_quantum "
+        f"{H100_CONSTANTS.bw_sat_quantum}) = "
+        f"{SP.split_sizes(sms, granule, H100_CONSTANTS.bw_sat_quantum)}; "
+        f"{granule} SMs: the driver's granule)")
+    split_probe(sp)
+    quantum = fig9_sweep(cfg, params, eng)
+    cache_s, ft_s = clone_tree(eng.cache), clone_tree(ft)
+    captured("split: overlapped rounds (the decode graph on the decode "
+             "partition and on the whole card, the unit graphs on the unit "
+             "partition, three pools)",
+             lambda: ovl.precompile(eng.cache, ft))
+    bytes_ = pool_bytes([ovl._decode.pool, ovl._units.pool,
+                         ovl._solo.pool])
+    log(f"split: the decode graph's pool holds "
+        f"{bytes_[ovl._decode.pool] / 1e6:.1f} MB of memory_reserved, the "
+        f"whole card's decode graph's (k = 0) "
+        f"{bytes_[ovl._solo.pool] / 1e6:.1f} MB, the unit graphs' "
+        f"{bytes_[ovl._units.pool] / 1e6:.1f} MB: the pools beyond the "
+        f"one a sequential runner could share cost "
+        f"{(bytes_[ovl._decode.pool] + bytes_[ovl._solo.pool]) / 1e6:.1f} "
+        f"MB")
+    captured("split: sequential rounds (both on a side stream, K2 on the "
+             "whole card)", lambda: seq.precompile(cache_s, ft_s))
+    tok = torch.tensor(eng.last_token, device="cuda")
+    pos = torch.full((8,), SPLIT_CTX[0], dtype=torch.int32, device="cuda")
+    total = P.units_per_iteration(cfg, pc.accum)
+
+    # an overlapped round of 6 units against the sequential round (graphed
+    # and eager) on copies of the same cache and state
+    cache_e, ft_e = clone_tree(eng.cache), clone_tree(ft)
+    kinds = [ovl.unit_step.kind((ft["unit_idx"] + j) % total)
+             for j in range(6)]
+    lg_o, _, _ = ovl.run_round(6, tok, pos, eng.cache, ft)
+    lg_s, _, _ = seq.run_round(6, tok, pos, cache_s, ft_s)
+    lg_e, _, _ = eager.run_round(6, tok, pos, cache_e, ft_e)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(lg_o, other) for other in (lg_s, lg_e)) and \
+        same_bits(eng.cache, cache_s) and same_bits(eng.cache, cache_e) \
+        and same_bits(ft, ft_s) and same_bits(ft, ft_e)
+    log(f"split: an overlapped round of 6 units ({', '.join(kinds)}) against "
+        f"the sequential round, graphed and eager, at full width: logits, "
+        f"cache and finetune state bit-equal: {ok}")
+    if not ok:
+        raise AssertionError("split: the overlapped round differs from the "
+                             "sequential one")
+    del cache_e, ft_e
+
+    # the A/B: rounds of k units starting at each kind, sequential and
+    # overlapped in turns
+    first = {}
+    for i in range(total):
+        first.setdefault(ovl.unit_step.kind(i), i)
+    timers = {}
+    for name, r in (("sequential", seq), ("overlapped", ovl)):
+        timers[name] = TimedDecode(r._decode)
+        r._decode = timers[name]
+    rows = []
+    for k in SPLIT_AB_KS:
+        for start in ("FWD", "BWD", "HEAD", "OPT"):
+            idx = first[start]
+            label = "+".join(ovl.unit_step.kind((idx + j) % total)
+                             for j in range(k))
+            times = {"sequential": [], "overlapped": []}
+            for t in timers.values():
+                t.marks.clear()
+            for i in range(SPLIT_AB_ROUNDS):
+                order = (("sequential", seq, cache_s, ft_s),
+                         ("overlapped", ovl, eng.cache, ft))
+                for name, r, c, f in (order if i % 2 == 0 else order[::-1]):
+                    f["unit_idx"] = idx
+                    secs, _ = C._timed_round(r, k, tok, pos, c, f)
+                    times[name].append(1e3 * secs)
+            torch.cuda.synchronize()
+            dec = {name: statistics.median(e0.elapsed_time(e1)
+                                           for e0, e1 in t.marks)
+                   for name, t in timers.items()}
+            med = {n: statistics.median(v) for n, v in times.items()}
+            p90 = {n: float(np.percentile(v, 90)) for n, v in times.items()}
+            rows.append((k, label, med, p90, dec))
+            log(f"split A/B: k={k} {label}: sequential median "
+                f"{med['sequential']:.3f} p90 {p90['sequential']:.3f} ms "
+                f"(decode inside {dec['sequential']:.3f}), overlapped median "
+                f"{med['overlapped']:.3f} p90 {p90['overlapped']:.3f} ms "
+                f"(decode stream {dec['overlapped']:.3f}); overlapped / "
+                f"sequential {med['overlapped'] / med['sequential']:.3f} "
+                f"({SPLIT_AB_ROUNDS} rounds each, in turns, 8 slots, ctx "
+                f"{SPLIT_CTX[0]})")
+    for name, r in (("sequential", seq), ("overlapped", ovl)):
+        r._decode = timers[name].inner
+
+    # K2 at gate/up on the unit partition's stream (its grid of one CTA
+    # per SM of the card, which the partition confines) and on the card
+    x, w, a, b = k2_inputs(2048, cfg.d_model, cfg.d_ff, 16, torch.bfloat16,
+                           False, seed=26)
+    units = sp.units
+    y_card = K2.lora_matmul(x, w, a, b, 2.0)
+    card = time_ms(lambda: K2.lora_matmul(x, w, a, b, 2.0))
+    units.stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(units.stream):
+        part = check_k2(K2, x, w, a, b, 2.0, f"gate/up on the unit "
+                        f"partition ({units.sms} SMs)", "wgmma")
+        y_part = K2.lora_matmul(x, w, a, b, 2.0)
+    torch.cuda.current_stream().wait_stream(units.stream)
+    same = torch.equal(y_part, y_card)
+    log(f"split K2: gate/up on the unit partition ({units.sms} SMs) "
+        f"{part['ms']:.4f} ms, on the whole card {card:.4f} ms, bit-equal "
+        f"{same}")
+    if not same:
+        raise AssertionError("split: K2's output depends on the partition")
+    peaks("split")
+    return dict(quantum=quantum, rows=rows)
+
+
 def phase10_mamba2_colocated(cfg, params, eng, solo_round_s, seq_len):
     """Co-located mamba2-780m: `serve_colocated` on phase 9's weights and
     engine. LoRA on the SSM family is the parallel `ssm_io` adapter, so the
@@ -1465,7 +1782,7 @@ def nonneg_lstsq(X, y):
     return coef
 
 
-def fit_h100_constants(points):
+def fit_h100_constants(points, bw_sat_quantum):
     """The cost model's constants by least squares, in three stages, each
     on the reference's formula with the earlier stages' values:
       bw_eff, step and per-layer overheads from the graphed solo rounds of
@@ -1476,8 +1793,8 @@ def fit_h100_constants(points):
       overlap_eff and the unit overhead from phase 7's co-located rounds:
         t - max(t_mem, t_comp) - step - L * pl = (1 - overlap) * min(t_mem,
         t_comp) + k * unit.
-    Every coefficient >= 0, each efficiency <= 1. bw_sat_quantum keeps the
-    committed (paper) value."""
+    Every coefficient >= 0, each efficiency <= 1. bw_sat_quantum is the
+    share phase 7b's Fig. 9 sweep measured."""
     from repro_torch.core.costmodel import (H100_CONSTANTS, CostConstants,
                                             CostModel)
     from repro_torch.hw import H100_SXM as chip
@@ -1522,11 +1839,11 @@ def fit_h100_constants(points):
         mxu_eff=float(1.0 / inv_mxu), bw_eff=float(1.0 / inv_bw),
         overlap_eff=float(1.0 - hidden_not), step_overhead_s=float(step),
         per_layer_overhead_s=float(per_layer), unit_overhead_s=float(unit),
-        bw_sat_quantum=H100_CONSTANTS.bw_sat_quantum)
+        bw_sat_quantum=float(bw_sat_quantum))
     return fitted, float(unit_c)
 
 
-def costmodel_fit(points):
+def costmodel_fit(points, bw_sat_quantum):
     """The cost model's H100 constants fitted from this run's points
     (`fit_h100_constants`), printed; then the committed constants' and the
     fitted ones' relative error at every profiled point: the solo rounds
@@ -1536,7 +1853,7 @@ def costmodel_fit(points):
     from repro_torch.core.costmodel import (H100_CONSTANTS, CostModel,
                                             InstanceSpec)
     # ------------------------------- 7. the cost model's H100 constants --
-    fitted, unit_c = fit_h100_constants(points)
+    fitted, unit_c = fit_h100_constants(points, bw_sat_quantum)
     log(f"costmodel fit: {fitted} (the FWD/BWD line's intercept "
         f"{1e3 * unit_c:.3f} ms; solo rounds of {SOLO_FIT_FAMILIES} fit "
         f"bw_eff and the overheads)")
@@ -2170,6 +2487,9 @@ def phases_llama3(dev):
     k1_7, k2_7, colo = phase7_colocated(cfg, params, eng, m.round_s,
                                         seq_len=1024)
     phase7_costmodel(cfg, eng, colo, seq_len=1024)
+    t0 = time.perf_counter()
+    split = phase7b_split(cfg, params, eng, seq_len=1024)
+    log(f"phase 7b took {time.perf_counter() - t0:.1f} s")
 
     return dict(k1=dict(launches=launches, **main_k1,
                         launches_by_path={"serve": launches,
@@ -2178,6 +2498,7 @@ def phases_llama3(dev):
                         launches_by_path={"train_iteration": train_launches,
                                           "colocated_serve": k2_7}),
                 points=cost_points(cfg, colo, unit_s),
+                quantum=split["quantum"],
                 served=dict(tokens=served, cache_bytes=tree_bytes(eng.cache)),
                 phase3=dict(round_s=ab["graphed"][0], ctx=ab["ctx"]))
 
@@ -3808,9 +4129,12 @@ def colocated_costmodel(tag, cfg, params, eng, qos_s, seq_len):
     ft = P.init_ft_state(cfg, pc, params, 1, staged)
     runner = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=6,
                                use_kernels=True)
+    if runner.split is None:
+        raise AssertionError("the runner does not run on an SM split")
     torch.cuda.reset_peak_memory_stats()
-    captured(f"{tag} co-located rounds", lambda: runner.precompile(
-        eng.cache, ft))
+    captured(f"{tag} co-located rounds (decode on {runner.split.decode.sms} "
+             f"SMs, the units on {runner.split.units.sms}, two pools)",
+             lambda: runner.precompile(eng.cache, ft))
     pred = TwoStageLatencyPredictor(k_max=6)
     pred.fit_from_costmodel(CostModel(cfg, InstanceSpec()),
                             micro_batch=FT_MICRO_BATCH, ft_seq=seq_len)
@@ -4580,7 +4904,7 @@ def main() -> int:
     mixtral = phase12_mixtral(dev)
     log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
     fitted = costmodel_fit([llama.pop("points"), mamba_points,
-                            mixtral.pop("points")])
+                            mixtral.pop("points")], llama.pop("quantum"))
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

@@ -3,27 +3,53 @@
 Port of `repro/core/colocation.py`. The reference jits one program per
 quantum level k, the decode step fused with k units (a `lax.scan` of
 length k whose body picks its unit with `lax.switch` on `unit_idx`), and
-`precompile` compiles them all at startup. On the card the port captures
-CUDA graphs in their place: `precompile` captures the decode step at the
-cache's batch (`serving/engine.py::DecodeGraph`) and one graph per unit
-index of an iteration (`GraphedUnits`), and a round with k units replays
-the decode graph and then the next k unit graphs, which the host's
-`unit_idx` picks. Every k replays the same graphs, so there is one set of
-graphs however many quantum levels there are. The units run after decode,
-in order, on the current stream (overlapping them with decode, the paper's
-GreenContext split, is later work: ROADMAP.md §1 item 2); the round ends
-when its last unit ends, which is the latency the predictor models. The
-scheduler still chooses k every round, and k = 0 is still "inference
-preempts all". On the CPU, or with `graphs=False`, the same round runs
-eagerly: `decode_step` and then k `unit_step` calls.
+`precompile` compiles them all at startup; inside the program XLA's
+scheduler interleaves the units' matmuls with decode's weight and KV
+streaming, which the reference calls "the TPU analogue of GreenContext SM
+partitioning". On the card the port makes that split: a round with k > 0
+runs the decode step and its k units at once, on two disjoint SM
+partitions (`core/partition.py`: green contexts of `bw_sat_quantum` of the
+SMs for decode and the rest for the units, each with a stream). The round
+records an event on the current stream (fork); the decode stream waits on
+it and runs decode, the unit stream waits on it and runs the units, their
+host parts included (`UnitEngine.prepare`: the batch staging copies and
+OPT's pinned hparams copy are ordered on that stream); then the current
+stream waits on both (join). So whatever the engine enqueued before the
+round (admissions, prefills, slot inserts) comes before both parts, and
+the round ends when both have ended, as the reference's program does: a
+round's time, which the predictor models and the scheduler observes, is
+still the time of the whole round.
+
+`precompile` captures CUDA graphs in place of the reference's programs:
+the decode step at the cache's batch (`serving/engine.py::DecodeGraph`) on
+the decode partition's stream, and one graph per unit index of an
+iteration (`GraphedUnits`) on the unit partition's. A graph keeps to the
+SMs of the partition it was captured on, so K2's persistent grid of one
+CTA per SM of the card runs on the unit partition's SMs alone. The two
+sides replay at once, so they take separate memory pools
+(`core/graphs.py`). A round with k units replays the decode graph and the
+next k unit graphs, which the host's `unit_idx` picks; every k replays
+the same graphs. The scheduler still chooses k every round, and k = 0
+("inference preempts all") runs decode alone on the current stream, on
+the whole card (a split also captures a decode graph there for it). Eager
+rounds on the card (`graphs=False`) fork and join the same way. On the
+CPU, or with `split=False`, a round runs sequentially: decode, then its
+units, on the current stream (the split's A/B); on the CPU only eager
+rounds exist.
+
+The split is static: units that outlast decode run on their partition to
+the end of the round, so such rounds (most with k >= 3 on llama3-8b) take
+longer overlapped than sequential. The runner does not choose between the
+two per round (ROADMAP.md §1 item 2).
 
 Correctness invariant (tested): a round equals `decode_step` followed by
-k separate `unit_step` calls, bit for bit, graphed or eager.
+k separate `unit_step` calls, bit for bit, graphed or eager, overlapped
+or sequential.
 
 Also here: `profile_rounds`, the paper's offline profiling (§8.8) run
-against the real engine on the device it serves on (graphed rounds on the
-card, so the predictor is fit on the rounds it schedules), and
-`run_colocated_trace`, the serve loop with the scheduler in it.
+against the real engine on the device it serves on (graphed, overlapped
+rounds on the card, so the predictor is fit on the rounds it schedules),
+and `run_colocated_trace`, the serve loop with the scheduler in it.
 """
 
 from __future__ import annotations
@@ -36,6 +62,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import graphs as G
+from repro_torch.core import partition as SP
 from repro_torch.core.predictor import TwoStageLatencyPredictor
 from repro_torch.core.scheduler import QoSScheduler
 from repro_torch.models import model as MD
@@ -53,26 +80,32 @@ class GraphedUnits:
     host counters) has none. Capture first runs a whole
     iteration for real (the warm-up), then puts the state back: tensors,
     host counters and all. `pool`: the memory pool to capture into (a new
-    one by default)."""
+    one by default). `part`: the SM partition to capture and replay on
+    (None: the whole device, on a side stream)."""
 
-    def __init__(self, unit_step: P.UnitEngine, ft_state, pool=None):
+    def __init__(self, unit_step: P.UnitEngine, ft_state, pool=None,
+                 part: Optional[SP.Part] = None):
         self.unit_step = unit_step
         self._addresses = G.addresses(ft_state)
-        pool = pool or torch.cuda.graph_pool_handle()
+        self.pool = pool or torch.cuda.graph_pool_handle()
+        self.part = part
+        stream = None if part is None else part.stream
         host = {k: ft_state[k] for k in ("unit_idx", "data_idx", "iter",
                                          "consumed")}
         t = ft_state["opt"]["t"]
         saved = G.snapshot(ft_state)
         total = unit_step.total_units
-        G.on_side_stream(lambda: P.run_units(unit_step, ft_state, total))
         self.graphs: Dict[object, G.Graph] = {}
+        G.on_side_stream(lambda: P.run_units(unit_step, ft_state, total),
+                         stream)
         for j in range(total):
             idx = (host["unit_idx"] + j) % total
             key = unit_step.key(idx)
             if key in self.graphs or not unit_step.has_work(idx):
                 continue
             self.graphs[key] = G.capture(
-                functools.partial(unit_step.run, ft_state, idx), pool)
+                functools.partial(unit_step.run, ft_state, idx), self.pool,
+                stream)
         G.restore(saved)
         ft_state.update(host)
         ft_state["opt"]["t"] = t
@@ -101,12 +134,16 @@ class GraphedUnits:
 class ColocatedRunner:
     """One (decode, finetune) pair on one instance. `graphs` (default: on
     for a CUDA device) replays CUDA graphs; False runs eager rounds, and
-    True off the card raises."""
+    True off the card raises. `split` (default: on for a CUDA device) runs
+    a round with k > 0 as decode and its units at once, on two disjoint
+    SM partitions (`core/partition.py`); False runs them one after the
+    other on the current stream, and True off the card raises."""
 
     def __init__(self, cfg_inf: ModelConfig, params_inf,
                  cfg_ft: ModelConfig, params_ft, pc: P.PeftConfig,
                  k_max: int = 10, use_kernels: bool = False,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None,
+                 split: Optional[bool] = None):
         self.cfg_inf = cfg_inf
         self.cfg_ft = cfg_ft
         self.k_max = k_max
@@ -114,22 +151,53 @@ class ColocatedRunner:
                                           use_kernels=use_kernels)
         self._params_inf = params_inf
         self._use_kernels = use_kernels
-        self.graphs = G.resolve(graphs, params_inf["embed"].device)
+        device = params_inf["embed"].device
+        self.graphs = G.resolve(graphs, device)
+        self.split: Optional[SP.Split] = \
+            SP.split_for(device) if SP.resolve(split, device) else None
         self._decode: Optional[DecodeGraph] = None
+        self._solo: Optional[DecodeGraph] = None
         self._units: Optional[GraphedUnits] = None
 
+    def _decode_part(self, tokens, positions, cache, whole: bool = False):
+        """Decode; graphed on a split, `whole` replays the graph captured
+        on the whole card (k = 0) in place of the decode partition's."""
+        if self.graphs:
+            graph = self._solo if whole and self._solo else self._decode
+            return graph(tokens, positions, cache)
+        return MD.decode_step(self._params_inf, self.cfg_inf, tokens,
+                              positions, cache,
+                              use_kernels=self._use_kernels)[0]
+
+    def _units_part(self, ft_state, k: int) -> None:
+        if self.graphs:
+            self._units.run(ft_state, k)
+        else:
+            P.run_units(self.unit_step, ft_state, k)
+
     def _round(self, k: int, tokens, positions, cache, ft_state):
-        if not self.graphs:
-            logits, cache = MD.decode_step(self._params_inf, self.cfg_inf,
-                                           tokens, positions, cache,
-                                           use_kernels=self._use_kernels)
-            ft_state = P.run_units(self.unit_step, ft_state, k)
+        if self.graphs:
+            if self._decode is None:
+                self.precompile(cache, ft_state)
+            self._units.check(ft_state)
+        if self.split is None or k == 0:
+            logits = self._decode_part(tokens, positions, cache, whole=True)
+            self._units_part(ft_state, k)
             return logits, cache, ft_state
-        if self._decode is None:
-            self.precompile(cache, ft_state)
-        self._units.check(ft_state)
-        logits = self._decode(tokens, positions, cache)
-        self._units.run(ft_state, k)
+        # fork: both partitions' streams start after what the current
+        # stream holds (admissions, prefills, slot inserts); join: the
+        # current stream goes on when both have ended
+        main = torch.cuda.current_stream()
+        fork = main.record_event()
+        dec, units = self.split.decode, self.split.units
+        dec.stream.wait_event(fork)
+        units.stream.wait_event(fork)
+        with torch.cuda.stream(dec.stream):
+            logits = self._decode_part(tokens, positions, cache)
+        with torch.cuda.stream(units.stream):
+            self._units_part(ft_state, k)
+        main.wait_stream(dec.stream)
+        main.wait_stream(units.stream)
         return logits, cache, ft_state
 
     def variant(self, k: int) -> Callable:
@@ -146,16 +214,28 @@ class ColocatedRunner:
         graph and the unit graphs on this cache and finetune state, and
         leave both bit-equal to what they were. Eager rounds compile
         nothing (the kernels are built at their first launch); graphed
-        rounds capture at the first round if this was not called."""
+        rounds capture at the first round if this was not called. The
+        decode graph and the unit graphs replay at once on a split, so
+        each takes a pool of its own (`core/graphs.py`), and each is
+        captured on its partition's stream. A split also captures decode on
+        the whole card, in a third pool, for the rounds with k = 0."""
         if not self.graphs:
             return
         if cache is None or ft_state is None:
             raise ValueError("capturing the rounds needs the cache and the "
                              "finetune state they will run on")
-        pool = torch.cuda.graph_pool_handle()       # shared by all of them
-        self._decode = DecodeGraph(self._params_inf, self.cfg_inf, cache,
-                                   use_kernels=self._use_kernels, pool=pool)
-        self._units = GraphedUnits(self.unit_step, ft_state, pool)
+        sp = self.split
+
+        def decode_graph(stream=None):
+            return DecodeGraph(self._params_inf, self.cfg_inf, cache,
+                               use_kernels=self._use_kernels,
+                               pool=torch.cuda.graph_pool_handle(),
+                               stream=stream)
+        self._decode = decode_graph(None if sp is None else sp.decode.stream)
+        self._solo = None if sp is None else decode_graph()
+        self._units = GraphedUnits(self.unit_step, ft_state,
+                                   torch.cuda.graph_pool_handle(),
+                                   None if sp is None else sp.units)
 
 
 def make_ft_only_step(cfg_ft: ModelConfig, params_ft, pc: P.PeftConfig,
@@ -181,7 +261,8 @@ def make_ft_only_step(cfg_ft: ModelConfig, params_ft, pc: P.PeftConfig,
 def _timed_round(runner: ColocatedRunner, k: int, tokens, positions, cache,
                  ft_state) -> Tuple[float, dict]:
     """Host-clock seconds of one round, ended by the device-to-host copy of
-    its greedy tokens (which waits for the units queued after decode)."""
+    its greedy tokens (which waits for the units: on a split, the current
+    stream joins both partitions' streams)."""
     t0 = time.perf_counter()
     logits, _, ft_state = runner.run_round(k, tokens, positions, cache,
                                            ft_state)

@@ -49,20 +49,30 @@ class CostConstants:
     bw_sat_quantum: float        # share of the chip that saturates HBM
 
 
-# Fitted by `chip_smoke.py` (`fit_h100_constants`, its "costmodel fit:"
-# line) in run r1 of PR 18 on an NVIDIA H100 80GB HBM3 at a 700 W power
-# limit, from graphed llama3-8b and mamba2-780m solo rounds (8 slots),
-# llama3-8b's graphed FWD and BWD units (micro-batch 2 x 1024) and its
-# co-located rounds (k = 1, 3, 6):
+# One fit of `chip_smoke.py` (`fit_h100_constants`, its "costmodel fit:"
+# line), taken whole: the cost model's first fit on the card (PERF.md §6),
+# on an NVIDIA H100 80GB HBM3 at a 700 W power limit, from graphed
+# llama3-8b and mamba2-780m solo rounds (8 slots), llama3-8b's graphed FWD
+# and BWD units (micro-batch 2 x 1024) and its co-located rounds (k = 1,
+# 3, 6), which then ran their units after decode:
 #   bw_eff 1.0: the least squares wanted more than the HBM peak, so it is
 #     pinned there, and the rounds' time beyond the weight stream falls to
 #     the step and per-layer overheads (the round barely moves with batch
 #     and context);
-#   overlap_eff 0.21: the port runs a round's units after its decode step,
-#     so the near-serial sum shows as little overlap.
-# bw_sat_quantum is the paper's Fig. 9 share, not a fit: the port never
-# runs decode on part of the card, so the predictor's solo levels below
-# quantum 1 are modelled, not measured.
+#   overlap_eff 0.21: the near-serial sum shows as little overlap.
+# The same fit on rounds that run decode and their units at once on an SM
+# split (`core/partition.py`; PERF.md §6) pins overlap_eff at 1 and puts
+# ~5 ms a unit into the unit overhead: the units run slower on their part
+# of the card, and the formula has no term for that. Such a set prices
+# every unit 5 ms dearer, on the whole card too (llama3-8b's FWD 9.2 ms
+# against 5.1 measured), and its error on the overlapped rounds (0.40-0.42
+# mean) is larger than this set's (0.33-0.35), so this set stays until the
+# formula has that term.
+# bw_sat_quantum is the paper's Fig. 9 share, not a fit. Phase 7b's sweep
+# on the card reads decode within 5 % of its whole-card round on 64 of 132
+# SMs (1.03-1.04x) and not on 56 (1.06-1.09x), so the share lies in
+# (0.424, 0.485], which holds 0.45; every share in it gives decode 64
+# SMs in the driver's granules of 8 (`core/partition.py`).
 H100_CONSTANTS = CostConstants(
     mxu_eff=0.2535178282619821,
     bw_eff=1.0,

@@ -10,20 +10,31 @@ and where a caller asks for them (`resolve`).
 
 Capture: the caller warms each body up for real on a side stream
 (`on_side_stream`), puts back what the warm-up changed (`snapshot`,
-`restore`), then `capture`s it into a memory pool that all the graphs of
-one owner share: the co-located runner's decode graph and its unit graphs
-take one pool (`torch.cuda.graph_pool_handle()`), which lives as long as
-they do (PyTorch refuses a capture into a pool whose graphs are all
-gone, so a pool is not kept beyond its owner).
+`restore`), then `capture`s it into a memory pool
+(`torch.cuda.graph_pool_handle()`), which lives as long as its graphs do
+(PyTorch refuses a capture into a pool whose graphs are all gone, so a
+pool is not kept beyond its owner). A graph keeps to the SMs of the
+context it was captured in, whatever stream it is replayed on: the
+co-located rounds on a split capture each graph on its own partition's
+stream (`core/partition.py`), and replay it there (`chip_smoke.py` and the
+card-only tests hold the SM ids a replay writes against the partition's).
 
-The shared pool is safe by one invariant: no graph leaves a tensor in the
-pool behind it. Everything a graph reads or writes beyond its own replay
-(its static inputs and outputs, the cache, the finetune state) was
-allocated outside any capture, and the graph writes its results into those
-tensors in place. The pool then holds only temporaries that die within a
-replay, so the graphs can share it and replay in any order, one at a time
-on one stream. That is why the unit engine updates its state in place
-(`training/peft.py`).
+Pools: graphs may share one pool only if they replay one at a time on one
+stream, and no graph leaves a tensor in the pool behind it. Everything a
+graph reads or writes beyond its own replay (its static inputs and
+outputs, the cache, the finetune state) was allocated outside any
+capture, and the graph writes its results into those tensors in place.
+The pool then holds only temporaries that die within a replay, so graphs
+that replay in turn can share it, in any order. That is why the unit
+engine updates its state in place (`training/peft.py`). A co-located
+round on a split replays the decode graph on the decode partition's
+stream while the unit graphs replay on the unit partition's, so the two
+would overwrite each other's temporaries in one pool: the runner gives the
+decode graph a pool of its own and the unit graphs another, which they
+share, since they replay one after another on their stream. A runner
+on a split also captures decode on the whole card for its rounds with
+k = 0, in a third pool; a runner without a split keeps two pools (its
+rounds are the split's A/B).
 
 Kernel counters: the kernel wrappers count launches on the host, when they
 are called, and `models/attention.py` counts the int8 caches' oracle
@@ -78,13 +89,15 @@ class Graph:
             setattr(mod, name, getattr(mod, name) + n)
 
 
-def capture(fn: Callable[[], object], pool: tuple) -> Graph:
-    """Capture `fn` (warmed up already) into `pool`. A failed capture
-    raises; nothing falls back to eager rounds."""
+def capture(fn: Callable[[], object], pool: tuple,
+            stream: Optional[torch.cuda.Stream] = None) -> Graph:
+    """Capture `fn` (warmed up already) into `pool`, on `stream` (a side
+    stream of PyTorch's by default). A failed capture raises; nothing falls
+    back to eager rounds."""
     before = _counts()
     g = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(g, pool=pool):
+        with torch.cuda.graph(g, pool=pool, stream=stream):
             fn()
         moved = {k: n - before[k] for k, n in _counts().items()
                  if n != before[k]}
@@ -116,11 +129,13 @@ def measured(precompile: Callable[[], object], device
             torch.cuda.memory_reserved(device) - reserved)
 
 
-def on_side_stream(fn: Callable[[], object]) -> None:
-    """Run `fn` for real on a side stream, ordered after and before the
-    current stream's work (the warm-up `torch.cuda.graph` asks for)."""
+def on_side_stream(fn: Callable[[], object],
+                   stream: Optional[torch.cuda.Stream] = None) -> None:
+    """Run `fn` for real on a side stream (`stream`, or a new one), ordered
+    after and before the current stream's work (the warm-up
+    `torch.cuda.graph` asks for)."""
     main = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(main)
     with torch.cuda.stream(side):
         fn()

@@ -82,11 +82,13 @@ class DecodeGraph:
     `logits` and `next_tokens` the static outputs, all allocated outside
     the graph (`core/graphs.py`'s invariant). Capture warms the step up on
     the cache and then puts the cache back as it was. `pool`: the memory
-    pool to capture into (a new one by default)."""
+    pool to capture into (a new one by default); `stream`: the stream to
+    warm up and capture on (a side stream by default), whose SMs the
+    replays keep to."""
 
     def __init__(self, params, cfg: ModelConfig, cache, *,
                  use_kernels: bool = False, tokens=None, positions=None,
-                 pool=None):
+                 pool=None, stream=None):
         some = tree_leaves(cache["scan"])[0]      # (layers, slots, ...)
         slots, dev = some.shape[1], some.device
         self.tokens = torch.zeros((slots,), dtype=torch.int32, device=dev) \
@@ -102,7 +104,7 @@ class DecodeGraph:
 
         saved = G.snapshot(cache)
         out = {}
-        G.on_side_stream(lambda: out.setdefault("logits", step()))
+        G.on_side_stream(lambda: out.setdefault("logits", step()), stream)
         G.restore(saved)
         del saved
         self.logits = torch.empty_like(out.pop("logits"))
@@ -113,7 +115,8 @@ class DecodeGraph:
             self.logits.copy_(logits)
             self.next_tokens.copy_(logits.argmax(dim=-1))
 
-        self.graph = G.capture(body, pool or torch.cuda.graph_pool_handle())
+        self.pool = pool or torch.cuda.graph_pool_handle()
+        self.graph = G.capture(body, self.pool, stream)
 
     def __call__(self, tokens, positions, cache):
         """Replay on these inputs (copied into the static buffers unless

@@ -84,8 +84,11 @@ def tiny():
     return tcfg, params, ft0, cache0, tok, pos, out
 
 
+@pytest.mark.parametrize("split", [None, False])
 @pytest.mark.parametrize("use_kernels", [False, True])
-def test_colocated_round_equals_decode_plus_units(tiny, use_kernels):
+def test_colocated_round_equals_decode_plus_units(tiny, use_kernels, split):
+    """On the CPU the round runs sequentially, whether the split is left
+    to its default (on only on the card) or turned off."""
     tcfg, params_j, ft0_j, cache0_j, tok, pos, (lg_j, cache_j, ft_j) = tiny
     params = to_torch(params_j)
     pc = TP.PeftConfig(micro_batch=2, seq_len=8, accum=1)
@@ -93,7 +96,8 @@ def test_colocated_round_equals_decode_plus_units(tiny, use_kernels):
     tok_t, pos_t = torch.from_numpy(tok), torch.from_numpy(pos)
 
     runner = C.ColocatedRunner(tcfg, params, tcfg, params, pc, k_max=4,
-                               use_kernels=use_kernels)
+                               use_kernels=use_kernels, split=split)
+    assert runner.split is None
     k1, k2 = K1.PLAIN_CALLS, K2.PLAIN_CALLS
     lg_f, cache_f, ft_f = runner.run_round(4, tok_t, pos_t, _clone(cache0),
                                            _clone(ft0))

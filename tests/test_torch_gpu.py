@@ -674,7 +674,8 @@ def test_graphed_rounds_equal_eager_rounds(arch):
 @pytest.mark.gpu
 def test_replays_count_their_captured_launches():
     """Capture launches nothing and moves no counter; each replay adds its
-    captured launches: K1 once per layer in the decode graph, K2 7 times
+    captured launches: K1 once per layer in the decode graph (and in the
+    whole card's decode graph a split captures for k = 0), K2 7 times
     in a FWD unit's graph and 14 in a BWD unit's (all wgmma), nothing in
     EMBED, HEAD and OPT."""
     dev = _card()
@@ -689,10 +690,13 @@ def test_replays_count_their_captured_launches():
                                use_kernels=True)
     k1, k2 = K.LAUNCHES, K2.LAUNCHES_WGMMA
     runner.precompile(cache, ft)
-    # the warm-up launches for real: one decode step and one iteration
+    # the warm-up launches for real: one decode step per decode graph (two
+    # on the split: its partition's and the whole card's) and one iteration
     n = cfg.num_layers
-    assert K.LAUNCHES - k1 == n and K2.LAUNCHES_WGMMA - k2 == 21 * n
+    assert runner.split is not None
+    assert K.LAUNCHES - k1 == 2 * n and K2.LAUNCHES_WGMMA - k2 == 21 * n
     assert runner._decode.graph.launches == {(K, "LAUNCHES"): n}
+    assert runner._solo.graph.launches == {(K, "LAUNCHES"): n}
     unit = runner.unit_step
     for key, graph in runner._units.graphs.items():
         kind = unit.kind(pc.accum * unit.upm if key == "opt" else key)
@@ -1166,3 +1170,160 @@ def test_checkpoint_restores_onto_a_cuda_mesh_bit_equal(tmp_path):
                 assert torch.equal(a, b.full_tensor())
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------- the SM split --
+def _split():
+    from repro_torch.core import partition as SP
+    _card()
+    return SP, SP.split_for("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v3-671b"])
+def test_overlapped_rounds_equal_sequential_rounds(arch):
+    """Rounds with decode and its units at once on the split (the
+    default on the card) equal sequential rounds bit for bit, graphed and
+    eager, over two whole iterations of units (every kind, host staging
+    and OPT's pinned copy included), k in {0, 1, 3, 6}; the overlapped
+    runner's unit graphs keep K2's launches by kind."""
+    dev = _card()
+    cfg = _graph_cfg(arch)
+    params = MD.init_params(cfg, 0, device=dev)
+    cache, tok, pos = _served_cache(cfg, params, dev)
+    pc = TP.PeftConfig(micro_batch=2, seq_len=32, accum=1,
+                       opt=topt.AdamWConfig(lr=1e-3, warmup_steps=1))
+    ft = TP.init_ft_state(cfg, pc, params, 0, _staged(cfg))
+    runs = {}
+    for name, graphs, split in (("graphed split", None, None),
+                                ("graphed sequential", None, False),
+                                ("eager split", False, None),
+                                ("eager sequential", False, False)):
+        runner = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=6,
+                                   use_kernels=True, graphs=graphs,
+                                   split=split)
+        assert (runner.split is not None) == (split is None)
+        assert runner.graphs == (graphs is None)
+        c, f = _clone(cache), _clone(ft)
+        runner.precompile(c, f)
+        runs[name] = (runner, c, f)
+    upi = TP.units_per_iteration(cfg, pc.accum)
+    ks, cycle = [], itertools.cycle([0, 1, 3, 6])
+    while sum(ks) < 2 * upi:
+        ks.append(min(next(cycle), 2 * upi - sum(ks)))
+    kinds = set()
+    unit = runs["graphed split"][0].unit_step
+    for k in ks:
+        f0 = runs["graphed split"][2]
+        kinds.update(unit.kind((f0["unit_idx"] + j) % upi) for j in range(k))
+        logits = {name: r.run_round(k, tok, pos, c, f)[0].clone()
+                  for name, (r, c, f) in runs.items()}
+        torch.cuda.synchronize()
+        ref = runs["graphed sequential"]
+        for name, (r, c, f) in runs.items():
+            assert torch.equal(logits[name], logits["graphed sequential"]), \
+                (name, k)
+            _assert_same(c, ref[1])
+            _assert_same(f, ref[2])
+        tok, pos = logits["graphed sequential"].argmax(-1).to(
+            torch.int32), pos + 1
+    assert kinds >= {"EMBED", "FWD", "HEAD", "BWD", "OPT"}
+    assert runs["graphed split"][2]["iter"] == 2
+    assert np.isfinite(float(runs["graphed split"][2]["last_loss"]))
+
+
+@pytest.mark.gpu
+def test_probe_partitions_are_disjoint_and_confined():
+    """The probe launched eagerly on each partition's stream runs on as
+    many SMs as the partition has, and the two sets are disjoint; a graph
+    captured on a partition's stream keeps to that partition's SMs,
+    whatever stream it is replayed on."""
+    from repro_torch.core import graphs as G
+    SP, sp = _split()
+    ctas = 3 * torch.cuda.get_device_properties(0).multi_processor_count
+    sets = {}
+    for name, part in (("decode", sp.decode), ("units", sp.units)):
+        sets[name] = set(SP.smids(part.stream, ctas))
+        assert len(sets[name]) == part.sms
+    assert not sets["decode"] & sets["units"]
+    sms, _ = SP.device_sms(torch.cuda.current_device())
+    assert sp.decode.sms + sp.units.sms == sms
+    for name, part in (("decode", sp.decode), ("units", sp.units)):
+        out = torch.full((ctas,), -1, dtype=torch.int32, device="cuda")
+        G.on_side_stream(lambda: SP.smid_probe(out), part.stream)
+        graph = G.capture(lambda: SP.smid_probe(out),
+                          torch.cuda.graph_pool_handle(), part.stream)
+        for stream in (sp.decode.stream, sp.units.stream,
+                       torch.cuda.current_stream()):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                out.fill_(-1)
+                graph.replay()
+            torch.cuda.current_stream().wait_stream(stream)
+            assert set(out.tolist()) <= sets[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,trans", [
+    (2048, 4096, 14336, False),          # llama3 gate/up: 896 wide tiles
+    (2048, 4096, 14336, True),
+    (2048, 7168, 2048, False),           # 128 wide tiles
+    (200, 4104, 1032, True),             # ragged edges
+    (64, 256, 160, False)])
+def test_k2_on_a_partition_matches_plain(M, K, N, trans):
+    """K2 on the unit partition's stream, its grid of one CTA per SM of the
+    card confined to the partition's SMs, against its plain version at
+    test_kernels.py's bf16 tolerance, and bit-equal to the launch on the
+    whole card."""
+    SP, sp = _split()
+    x, w, a, b = _k2_inputs(M, K, N, 16, torch.bfloat16, trans, "cuda")
+    expect = K2.lora_matmul_plain(x, w, a, b, 2.0)
+    whole = K2.lora_matmul(x, w, a, b, 2.0)
+    part = sp.units
+    part.stream.wait_stream(torch.cuda.current_stream())
+    before = K2.LAUNCHES_WGMMA
+    with torch.cuda.stream(part.stream):
+        got = K2.lora_matmul(x, w, a, b, 2.0)
+    torch.cuda.current_stream().wait_stream(part.stream)
+    torch.cuda.synchronize()
+    assert K2.LAUNCHES_WGMMA - before == 1
+    torch.testing.assert_close(got.float(), expect.float(), atol=3e-2,
+                               rtol=3e-2)
+    assert torch.equal(got, whole)
+
+
+@pytest.mark.gpu
+def test_decode_and_unit_graphs_hold_different_pools():
+    """The decode graph and the unit graphs of a runner take separate
+    pools, split or not; on a split the unit graphs were captured for the
+    unit partition, and the whole card's decode graph (k = 0) has a third
+    pool."""
+    dev = _card()
+    cfg = _graph_cfg("llama3-8b")
+    params = MD.init_params(cfg, 0, device=dev)
+    cache, _, _ = _served_cache(cfg, params, dev)
+    pc = TP.PeftConfig(micro_batch=2, seq_len=32, accum=1)
+    ft = TP.init_ft_state(cfg, pc, params, 0, _staged(cfg))
+    for split in (None, False):
+        runner = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=4,
+                                   use_kernels=True, split=split)
+        runner.precompile(cache, ft)
+        assert runner._decode.pool != runner._units.pool
+        assert runner._units.part is (None if split is False
+                                      else runner.split.units)
+        if split is False:
+            assert runner._solo is None
+        else:
+            assert len({runner._decode.pool, runner._units.pool,
+                        runner._solo.pool}) == 3
+
+
+@pytest.mark.gpu
+def test_a_split_the_driver_refuses_raises():
+    """A split that leaves the units no SM is refused by the driver, and
+    the refusal raises."""
+    SP, _ = _split()
+    sms, granule = SP.device_sms(torch.cuda.current_device())
+    assert granule >= 1 and sms >= 2 * granule
+    with pytest.raises(RuntimeError, match="splitting off"):
+        SP.Split("cuda", sms)
