@@ -1,0 +1,4 @@
+"""device_idle.decode: % of the traced window with no operation on the
+device."""
+
+from perfbench.metrics._common import device_idle as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""mfu.colo: the whole step's share of the bf16 peak (%)."""
+
+from perfbench.metrics._common import mfu as read  # noqa: F401
