@@ -50,6 +50,12 @@ Also here: `profile_rounds`, the paper's offline profiling (§8.8) run
 against the real engine on the device it serves on (graphed, overlapped
 rounds on the card, so the predictor is fit on the rounds it schedules),
 and `run_colocated_trace`, the serve loop with the scheduler in it.
+
+Spans (`spans.py`, recorded in a traced window): `sched.pick` (bs, ctx,
+k, predicted_s) in the serve loop; inside a round `colo.decode`, and with
+k > 0 `colo.units` (k) holding a `colo.unit` (unit, kind) per unit; a
+split round also records device marks: CUDA events at the fork, after
+decode on its stream and after each unit on the units' stream.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import graphs as G
 from repro_torch.core import partition as SP
 from repro_torch.core.predictor import TwoStageLatencyPredictor
@@ -169,11 +176,21 @@ class ColocatedRunner:
                               positions, cache,
                               use_kernels=self._use_kernels)[0]
 
-    def _units_part(self, ft_state, k: int) -> None:
-        if self.graphs:
-            self._units.run(ft_state, k)
-        else:
-            P.run_units(self.unit_step, ft_state, k)
+    def _units_part(self, ft_state, k: int,
+                    marks: Optional[spans.RoundMarks] = None) -> None:
+        """The next k units, graphed or eager, a `colo.unit` span each (and
+        a device mark after each on a split round that records them)."""
+        u = self.unit_step
+        for _ in range(max(k, 0)):
+            idx = ft_state["unit_idx"]
+            kind = u.kind(idx)
+            with spans.span("colo.unit", unit=idx, kind=kind):
+                if self.graphs:
+                    self._units.step(ft_state)
+                else:
+                    u(ft_state)
+            if marks is not None:
+                marks.after_unit(kind)
 
     def _round(self, k: int, tokens, positions, cache, ft_state):
         if self.graphs:
@@ -181,21 +198,28 @@ class ColocatedRunner:
                 self.precompile(cache, ft_state)
             self._units.check(ft_state)
         if self.split is None or k == 0:
-            logits = self._decode_part(tokens, positions, cache, whole=True)
-            self._units_part(ft_state, k)
+            with spans.span("colo.decode"):
+                logits = self._decode_part(tokens, positions, cache,
+                                           whole=True)
+            if k > 0:
+                with spans.span("colo.units", k=k):
+                    self._units_part(ft_state, k)
             return logits, cache, ft_state
         # fork: both partitions' streams start after what the current
         # stream holds (admissions, prefills, slot inserts); join: the
         # current stream goes on when both have ended
         main = torch.cuda.current_stream()
-        fork = main.record_event()
+        marks = spans.split_marks()
+        fork = main.record_event(None if marks is None else marks.fork)
         dec, units = self.split.decode, self.split.units
         dec.stream.wait_event(fork)
         units.stream.wait_event(fork)
-        with torch.cuda.stream(dec.stream):
+        with spans.span("colo.decode"), torch.cuda.stream(dec.stream):
             logits = self._decode_part(tokens, positions, cache)
-        with torch.cuda.stream(units.stream):
-            self._units_part(ft_state, k)
+            if marks is not None:
+                marks.after_decode()
+        with spans.span("colo.units", k=k), torch.cuda.stream(units.stream):
+            self._units_part(ft_state, k, marks)
         main.wait_stream(dec.stream)
         main.wait_stream(units.stream)
         return logits, cache, ft_state
@@ -329,8 +353,11 @@ def run_colocated_trace(eng, runner: ColocatedRunner, sched: QoSScheduler,
             return
         bs = len(active)
         ctx = sum(eng.context(r.slot) for r in active) / bs
-        k = sched.pick(bs, ctx, ft_ready=True,
-                       ft_units_available=runner.k_max).k
+        with spans.top("sched.pick", bs=bs, ctx=ctx) as sp:
+            d = sched.pick(bs, ctx, ft_ready=True,
+                           ft_units_available=runner.k_max)
+            sp.set(k=d.k, predicted_s=d.predicted_s)
+        k = d.k
 
         def step(tokens, positions, cache):
             logits, cache, box["ft"] = runner.run_round(

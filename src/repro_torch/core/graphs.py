@@ -40,7 +40,10 @@ Kernel counters: the kernel wrappers count launches on the host, when they
 are called, and `models/attention.py` counts the int8 caches' oracle
 decodes. Capture calls them without launching anything, so `capture`
 takes the counts that moved back out, and `Graph.replay` adds them again
-at every replay: the counters keep counting device launches.
+at every replay: the counters keep counting device launches. `CAPTURES`
+counts the graphs captured: none should be in a serving window. A
+replay is a `graph.replay` span (`spans.py`): the host's launch of the
+graph.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import decode_attention as _k1
 from repro_torch.kernels import lora_matmul as _k2
 from repro_torch.kernels import ssd_scan as _k3
@@ -57,6 +61,7 @@ from repro_torch.models import attention as _attn
 from repro_torch.tree import tree_leaves
 
 _COUNTED = (_k1, _k2, _k3, _attn)
+CAPTURES = 0
 
 
 def resolve(graphs: Optional[bool], device) -> bool:
@@ -84,7 +89,8 @@ class Graph:
         self.launches = launches
 
     def replay(self) -> None:
-        self.graph.replay()
+        with spans.span("graph.replay"):
+            self.graph.replay()
         for (mod, name), n in self.launches.items():
             setattr(mod, name, getattr(mod, name) + n)
 
@@ -94,6 +100,8 @@ def capture(fn: Callable[[], object], pool: tuple,
     """Capture `fn` (warmed up already) into `pool`, on `stream` (a side
     stream of PyTorch's by default). A failed capture raises; nothing falls
     back to eager rounds."""
+    global CAPTURES
+    CAPTURES += 1
     before = _counts()
     g = torch.cuda.CUDAGraph()
     try:

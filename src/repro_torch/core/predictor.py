@@ -19,7 +19,6 @@ default.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -32,8 +31,6 @@ PROFILE_SEQLENS = tuple(range(64, 513, 64))
 
 @dataclasses.dataclass
 class FitReport:
-    solo_fit_s: float = 0.0
-    colo_fit_s: float = 0.0
     solo_samples: int = 0
     colo_samples: int = 0
     solo_mean_err: float = 0.0
@@ -42,7 +39,6 @@ class FitReport:
     colo_max_err: float = 0.0
     colo_paper_mean_err: float = 0.0    # Eq. 3 verbatim, under fusion
     colo_paper_max_err: float = 0.0
-    mixed_fit_s: float = 0.0            # chunked-prefill stage
     mixed_samples: int = 0
     mixed_mean_err: float = 0.0
     mixed_max_err: float = 0.0
@@ -75,7 +71,6 @@ class TwoStageLatencyPredictor:
     def fit_solo(self, samples: Dict[float, List[Tuple[int, int, float]]]
                  ) -> None:
         """samples: q_inf -> [(bs, seqlen, latency_s)]."""
-        t0 = time.perf_counter()
         errs = []
         for q, rows in samples.items():
             bs = np.array([r[0] for r in rows], np.float64)
@@ -87,7 +82,6 @@ class TwoStageLatencyPredictor:
             pred = X @ coef
             errs.extend(np.abs(pred - y) / np.maximum(y, 1e-9))
             self.report.solo_samples += len(rows)
-        self.report.solo_fit_s = time.perf_counter() - t0
         self.report.solo_mean_err = float(np.mean(errs))
         self.report.solo_max_err = float(np.max(errs))
 
@@ -115,7 +109,6 @@ class TwoStageLatencyPredictor:
                  ) -> None:
         """samples: [(q_inf, q_ft, bs, seqlen, latency_s)]. One model across
         all (bs, seqlen) — paper §8.8."""
-        t0 = time.perf_counter()
         # --- paper form (Eq. 3) ------------------------------------------
         Xp, y = [], []
         for q_inf, q_ft, bs, s, lat in samples:
@@ -139,7 +132,6 @@ class TwoStageLatencyPredictor:
         self.colo_lr_coef, *_ = np.linalg.lstsq(X, y, rcond=None)
         pred = X @ self.colo_lr_coef
         rel = np.abs(pred - y) / np.maximum(y, 1e-9)
-        self.report.colo_fit_s = time.perf_counter() - t0
         self.report.colo_samples = len(y)
         self.report.colo_mean_err = float(np.mean(rel))
         self.report.colo_max_err = float(np.max(rel))
@@ -177,13 +169,11 @@ class TwoStageLatencyPredictor:
     def fit_mixed(self, samples: List[Tuple[float, int, int, int, float]]
                   ) -> None:
         """samples: [(q_ft, bs, seqlen, chunk_tokens, latency_s)]."""
-        t0 = time.perf_counter()
         X = np.stack([self._mixed_features(q, bs, s, ct)
                       for q, bs, s, ct, _ in samples])
         y = np.array([lat for *_, lat in samples], np.float64)
         self.mixed_coef, *_ = np.linalg.lstsq(X, y, rcond=None)
         rel = np.abs(X @ self.mixed_coef - y) / np.maximum(y, 1e-9)
-        self.report.mixed_fit_s = time.perf_counter() - t0
         self.report.mixed_samples = len(y)
         self.report.mixed_mean_err = float(np.mean(rel))
         self.report.mixed_max_err = float(np.max(rel))
@@ -242,14 +232,6 @@ class TwoStageLatencyPredictor:
             return cap
         room = limit_s - (a * base + c)
         return int(max(min(room / b, float(cap)), 0.0))
-
-    def predict_latency_us(self) -> float:
-        """Runtime prediction cost (paper §8.8 reports ~5us)."""
-        t0 = time.perf_counter()
-        n = 1000
-        for i in range(n):
-            self.predict_colo(0.3, 16, 256)
-        return (time.perf_counter() - t0) / n * 1e6
 
     # --------------------------------------------------- profiling driver
     def fit_from_costmodel(self, cm: CostModel, micro_batch: int = 2,

@@ -42,6 +42,15 @@ back. `graphs=False` asks for eager rounds (the CPU has only those).
 Prefill stays eager: the reference's jitted prefill compiles once per
 prompt length, and a graph per length would capture at almost every
 admission. It writes the slot's cache in place, which the graph reads.
+
+Spans (`spans.py`, recorded in a traced window): `engine.admit` (rid,
+prompt_len, slot) over an admission, with `engine.admit.cache` (the
+one-slot cache), `engine.prefill`, `engine.admit.insert` and
+`engine.admit.token` (the first token's host read); `engine.round`
+(batch) over a round, with `engine.round.inputs` (positions, the pinned
+staging and its copies), `engine.round.step` (the replay or the step),
+`engine.round.tokens` (the copy that waits for the device) and
+`engine.round.finish` (pages, tokens, finishing).
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.core import graphs as G
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
@@ -67,7 +76,6 @@ class EngineMetrics:
     decode_rounds: int = 0
     tokens_out: int = 0
     prefills: int = 0
-    rejected_admissions: int = 0
     round_batch_sizes: List[int] = dataclasses.field(default_factory=list)
     # host-clock seconds of each decode round / admission prefill; each
     # ends in a device-to-host copy of its tokens, which waits for the device
@@ -204,29 +212,35 @@ class ServingEngine:
         slot = next((i for i, s in enumerate(self.slots) if s is None), None)
         if slot is None or not self.pages.admit(
                 slot, min(front + req.prompt_len, self.cache_len)):
-            self.metrics.rejected_admissions += 1
             return False
-        t0 = time.perf_counter()
-        req.slot, req.phase = slot, Phase.PREFILLING
-        self.slots[slot] = req
-        self.front[slot] = front
-        batch = {"tokens": torch.as_tensor(prompt_tokens[None, :],
-                                           device=self.device)}
-        for k, v in (extras or {}).items():
-            batch[k] = torch.as_tensor(v[None], device=self.device)
-        one_cache = MD.init_cache(self.cfg, 1, self.s_max, self.enc_len,
-                                  device=self.device)
-        logits, one_cache = MD.prefill(self.params, self.cfg, batch,
-                                       one_cache,
-                                       use_kernels=self.use_kernels)
-        self._insert_slot_cache(slot, one_cache)
-        tok = int(torch.argmax(logits[0]))
-        self.metrics.prefill_s.append(time.perf_counter() - t0)
-        self.last_token[slot] = tok
-        req.generated = 1
-        req.phase = Phase.DECODING
-        self.metrics.prefills += 1
-        self.metrics.tokens_out += 1
+        t0 = time.perf_counter_ns()
+        with spans.top("engine.admit", t0, rid=req.rid,
+                       prompt_len=req.prompt_len, slot=slot):
+            req.slot, req.phase = slot, Phase.PREFILLING
+            self.slots[slot] = req
+            self.front[slot] = front
+            batch = {"tokens": torch.as_tensor(prompt_tokens[None, :],
+                                               device=self.device)}
+            for k, v in (extras or {}).items():
+                batch[k] = torch.as_tensor(v[None], device=self.device)
+            with spans.span("engine.admit.cache"):
+                one_cache = MD.init_cache(self.cfg, 1, self.s_max,
+                                          self.enc_len, device=self.device)
+            with spans.span("engine.prefill"):
+                logits, one_cache = MD.prefill(self.params, self.cfg, batch,
+                                               one_cache,
+                                               use_kernels=self.use_kernels)
+            with spans.span("engine.admit.insert"):
+                self._insert_slot_cache(slot, one_cache)
+            with spans.span("engine.admit.token"):
+                tok = int(torch.argmax(logits[0]))
+            self.metrics.prefill_s.append(
+                (time.perf_counter_ns() - t0) / 1e9)
+            self.last_token[slot] = tok
+            req.generated = 1
+            req.phase = Phase.DECODING
+            self.metrics.prefills += 1
+            self.metrics.tokens_out += 1
         return True
 
     def _insert_slot_cache(self, slot: int, one_cache) -> None:
@@ -264,31 +278,43 @@ class ServingEngine:
                   if r is not None and r.phase == Phase.DECODING]
         if not active:
             return {}
-        t0 = time.perf_counter()
-        positions = self._positions_host.numpy()
-        positions[:] = 0
-        for i, r in active:
-            positions[i] = self.context(i) - 1  # position of the token fed
-        np.copyto(self._tokens_host.numpy(), self.last_token)
-        self.tokens.copy_(self._tokens_host, non_blocking=True)
-        self.positions.copy_(self._positions_host, non_blocking=True)
+        t0 = time.perf_counter_ns()
+        with spans.top("engine.round", t0, batch=len(active)):
+            with spans.span("engine.round.inputs"):
+                positions = self._positions_host.numpy()
+                positions[:] = 0
+                for i, r in active:
+                    # position of the token fed
+                    positions[i] = self.context(i) - 1
+                np.copyto(self._tokens_host.numpy(), self.last_token)
+                self.tokens.copy_(self._tokens_host, non_blocking=True)
+                self.positions.copy_(self._positions_host, non_blocking=True)
+            with spans.span("engine.round.step"):
+                next_tokens = self._step(step)
+            with spans.span("engine.round.tokens"):
+                next_tokens = next_tokens.cpu().numpy()
+            self.metrics.round_s.append((time.perf_counter_ns() - t0) / 1e9)
+            with spans.span("engine.round.finish"):
+                return self._finish(active, next_tokens)
+
+    def _step(self, step: Optional[Callable]) -> torch.Tensor:
+        """The round's greedy tokens on the device."""
         if step is None and self.graphs:
             if self._decode is None:
                 self.precompile()
             self._decode(self.tokens, self.positions, self.cache)
-            next_tokens = self._decode.next_tokens
+            return self._decode.next_tokens
+        if step is None:
+            logits, self.cache = MD.decode_step(
+                self.params, self.cfg, self.tokens, self.positions,
+                self.cache, use_kernels=self.use_kernels)
         else:
-            if step is None:
-                logits, self.cache = MD.decode_step(
-                    self.params, self.cfg, self.tokens, self.positions,
-                    self.cache, use_kernels=self.use_kernels)
-            else:
-                logits, self.cache = step(self.tokens, self.positions,
-                                          self.cache)
-            next_tokens = logits.argmax(dim=-1).to(torch.int32)
-        next_tokens = next_tokens.cpu().numpy()
-        self.metrics.round_s.append(time.perf_counter() - t0)
+            logits, self.cache = step(self.tokens, self.positions,
+                                      self.cache)
+        return logits.argmax(dim=-1).to(torch.int32)
 
+    def _finish(self, active, next_tokens: np.ndarray) -> Dict[int, int]:
+        """Account the round: each slot's page, token and finishing test."""
         out: Dict[int, int] = {}
         self.metrics.decode_rounds += 1
         self.metrics.round_batch_sizes.append(len(active))

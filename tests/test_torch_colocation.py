@@ -442,7 +442,6 @@ def test_predictor_and_scheduler_match_reference():
             pj.predict_mixed_fused(q_ft, 5, 300, 128), rel=1e-12)
         assert pt.max_chunk_tokens(q_ft, 5, 300, 0.05, 512) == \
             pj.max_chunk_tokens(q_ft, 5, 300, 0.05, 512)
-    assert pt.predict_latency_us() < 1000.0
 
     # a target that admits some quanta at small batch and context, none at
     # large

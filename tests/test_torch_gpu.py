@@ -38,7 +38,8 @@ decode through the counted oracle, no K1), and two steps of
 `launch/train.py` on the encoder-decoder; the recompute-backward flash
 attention against plain autograd at llama3-8b's and deepseek-v3's dense
 MLA training shapes, gradients and memory, and a checkpoint restored
-onto a 1x1 CUDA mesh bit for bit. Each skips
+onto a 1x1 CUDA mesh bit for bit; a split round's device marks
+against its host time, and the events and captures rounds make. Each skips
 with a reason where no CUDA device is present. This file
 imports no JAX (the machine with the card has none), so run it there with
   PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -46,6 +47,7 @@ imports no JAX (the machine with the card has none), so run it there with
 
 import dataclasses
 import itertools
+import time
 
 import numpy as np
 import pytest
@@ -1327,3 +1329,96 @@ def test_a_split_the_driver_refuses_raises():
     assert granule >= 1 and sms >= 2 * granule
     with pytest.raises(RuntimeError, match="splitting off"):
         SP.Split("cuda", sms)
+
+
+
+@pytest.mark.gpu
+def test_split_rounds_device_marks_and_captures(monkeypatch):
+    """Recording, a graphed split round at k = 2 marks both sides on the
+    device: each side's ms > 0 and under the round's host time, a mark per
+    unit of the unit step's kinds. Not recording, the round makes the
+    parent's events only (the fork and the two joins) and no mark. The
+    capture counter moves by the graphs `precompile` captures, and not in
+    the rounds."""
+    from repro_torch import spans
+    from repro_torch.core import graphs as G
+    dev = _card()
+    _split()
+    cfg = _graph_cfg("llama3-8b")
+    params = MD.init_params(cfg, 0, device=dev)
+    cache, tok, pos = _served_cache(cfg, params, dev)
+    pc = TP.PeftConfig(micro_batch=2, seq_len=32, accum=1)
+    ft = TP.init_ft_state(cfg, pc, params, 0, _staged(cfg))
+    runner = C.ColocatedRunner(cfg, params, cfg, params, pc, k_max=6,
+                               use_kernels=True)
+    assert runner.split is not None and runner.graphs
+    captures = G.CAPTURES
+    runner.precompile(cache, ft)
+    captured = G.CAPTURES - captures
+    assert captured == 2 + len(runner._units.graphs)
+    made = []
+
+    class Counted(torch.cuda.Event):
+        def __new__(cls, *a, **kw):
+            made.append(cls)
+            return super().__new__(cls, *a, **kw)
+    for name in ("torch.cuda.Event", "torch.cuda.streams.Event"):
+        monkeypatch.setattr(name, Counted)
+    try:
+        spans.disable()
+        runner.run_round(2, tok, pos, cache, ft)
+        torch.cuda.synchronize()
+        assert len(made) == 3 and spans.marks() == []
+        spans.enable()
+        idx = ft["unit_idx"]
+        t0 = time.perf_counter()
+        logits, _, ft = runner.run_round(2, tok, pos, cache, ft)
+        logits.argmax(-1).cpu()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        spans.disable()
+    (marks,) = spans.marks()
+    replays = [s for s in spans.records() if s.name == "graph.replay"]
+    assert len(replays) == 1 + sum(runner.unit_step.has_work(idx + j)
+                                   for j in range(2))
+    decode_ms, units_ms, per = marks.read()
+    assert 0 < decode_ms < host_ms and 0 < units_ms < host_ms
+    assert [k for k, _ in per] == [runner.unit_step.kind(idx + j)
+                                   for j in range(2)]
+    assert all(ms > 0 for _, ms in per)
+    assert G.CAPTURES - captures == captured
+
+
+@pytest.mark.gpu
+def test_spans_sit_on_the_cuda_profilers_clock():
+    """With CUDA activities, a program span around a `record_function`
+    region that launches a kernel and waits for it holds the region's
+    kineto event and the kernel, with 1 ms of slack on each side."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import spans
+    dev = _card()
+    x = torch.randn(2048, 2048, device=dev)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with spans.top("outer"):
+                time.sleep(0.002)
+                with record_function("inner_region"):
+                    (x @ x).sum().item()
+                time.sleep(0.002)
+    finally:
+        spans.disable()
+    outer = next(s for s in spans.records() if s.name == "outer")
+    events = prof.profiler.kineto_results.events()
+    inner = next(e for e in events if e.name() == "inner_region"
+                 and e.device_type() == DeviceType.CPU)
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA
+               and not e.name().startswith("inner_region")]
+    assert kernels
+    slack = 1_000_000
+    for e in [inner] + kernels:
+        assert outer.t0 - slack <= e.start_ns() <= e.end_ns() <= \
+            outer.t1 + slack, e.name()

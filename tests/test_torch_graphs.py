@@ -1,8 +1,9 @@
 """The CUDA graph helper of the port (`core/graphs.py`) on the CPU: which
 rounds replay graphs, how a replay counts the kernel launches it captured,
-and the snapshot that undoes a capture's warm-up. Capturing needs the
-card: `tests/test_torch_gpu.py` holds graphed rounds against eager ones
-there."""
+how a capture (CUDA's graph stubbed) counts itself and takes those
+launches back out, and the snapshot that undoes a capture's warm-up.
+Capturing needs the card: `tests/test_torch_gpu.py` holds graphed rounds
+against eager ones there."""
 
 import pytest
 
@@ -65,3 +66,29 @@ def test_snapshot_undoes_a_warm_up_in_place():
     assert torch.equal(tree["a"], torch.arange(4.0))
     assert not tree["b"][0].any() and tree["b"][1] == 3
     assert G.addresses(tree) == addresses
+
+
+class _StubGraph:
+    def replay(self):
+        pass
+
+
+def test_capture_counts_itself_and_takes_its_launches_back_out(monkeypatch):
+    """`capture` adds one to CAPTURES and leaves the kernel counters as
+    they were before it, keeping what moved for its replays (CUDA's graph
+    stubbed: the CPU has none)."""
+    import contextlib
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g, pool=None, stream=None:
+                        contextlib.nullcontext())
+
+    def body():
+        K1.LAUNCHES += 2
+        K2.LAUNCHES += 1
+
+    captures, before = G.CAPTURES, G._counts()
+    graph = G.capture(body, pool=None)
+    assert G.CAPTURES == captures + 1
+    assert G._counts() == before
+    assert graph.launches == {(K1, "LAUNCHES"): 2, (K2, "LAUNCHES"): 1}
