@@ -2,6 +2,7 @@
 """On-card smoke test of the PyTorch/H100 port (`src/repro_torch`).
 
   python3 chip_smoke.py          # from the repository root, on a machine with one card
+  python3 chip_smoke.py --k1     # phases 1 and 2 alone (the build, then K1)
 
 Phases, in order; any failure ends the run with a nonzero exit:
   1. environment: torch, the card, its power limit; build the CUDA kernels
@@ -11,8 +12,12 @@ Phases, in order; any failure ends the run with a nonzero exit:
      and f32, B in {1, 8}, 16 pages of 64 tokens; and B 1 with all 16 pages
      full, the long context where splitting matters most), timed beside its
      HBM bound, the plain version and one SDPA call over the same cache (a
-     yardstick the port never calls); at the long context, K1 at split
-     lengths of 32-1024 positions (the scan behind its split length);
+     yardstick the port never calls); the same at the benchmark's two
+     qwen2.5-7b cells (32 slots: decode-long's 128 pages with lengths over
+     1-7,168, colo-chat's 64 pages with 23 slots at length 1), asserted to
+     run on the tensor-core kernel; at the long context and at decode-long,
+     K1 at split lengths of 64-1024 positions (the scan behind the plan's
+     `SPLIT_BYTES`);
   3. the main path: `ServingEngine(use_kernels=True)` captures its decode
      step as a CUDA graph (capture time and memory printed) and serves 16
      requests on full-width llama3-8b (random seeded bf16 weights, 8 slots,
@@ -21,7 +26,7 @@ Phases, in order; any failure ends the run with a nonzero exit:
      solo rounds at 8 slots eager and 20 graphed, in turns, and a profiler
      window over 5 of each (median, p90, busy share); then one decode step
      with and without the kernel on the same cache, and K1 timed on that
-     cache, also at split lengths of 32-1024;
+     cache, also at split lengths of 64-1024;
   4. a profiler window over decode steps: device time by kernel, the
      device's busy share, and the host's CUDA launch/copy/sync calls;
   5. the LoRA matmul kernels (K2) against their plain torch version on the
@@ -620,16 +625,22 @@ def check_k1(K, q, kp, vp, pt, lengths, label):
 
 
 def k1_split_scan(K, args, label):
-    """K1 on one input at split lengths of 32 (one tile) to 1024 (one split
-    of the whole table), each held against the plain version and timed: the
-    scan behind `SPLIT_TOKENS`, which is set for the scan and restored."""
-    chosen = K.SPLIT_TOKENS
+    """K1 on one input at split lengths of 64 (one tile) to 1024 positions,
+    each held against the plain version and timed: the scan behind the
+    plan's `SPLIT_BYTES`, with `MIN_CTAS` (which shortens splits for small
+    grids) off; both are set for the scan and restored. `MAX_SPLITS` still
+    lengthens a split where the table would need more splits."""
+    chosen = (K.SPLIT_BYTES, K.MIN_CTAS)
+    q, kp, pt = args[0], args[1], args[3]
+    row = 2 * kp.shape[-1] * kp.element_size()
+    planned = K._k1_splits(pt.shape[1], kp.shape[1], q.shape[0] * kp.shape[2],
+                           row)
     expect = K.paged_decode_attention_plain(*args).float()
     tol, rel_tol = K1_TOL[args[0].dtype], K1_REL_TOL[args[0].dtype]
     times = {}
     try:
-        for split in (32, 64, 128, 256, 1024):
-            K.SPLIT_TOKENS = split
+        for split in (64, 128, 256, 512, 1024):
+            K.SPLIT_BYTES, K.MIN_CTAS = split * row, 1
             got = K.paged_decode_attention(*args).float()
             rel = (got - expect).abs().max().item() / \
                 expect.square().mean().sqrt().item()
@@ -639,10 +650,72 @@ def k1_split_scan(K, args, label):
                                      f"at split length {split}: {label}")
             times[split] = time_ms(lambda: K.paged_decode_attention(*args))
     finally:
-        K.SPLIT_TOKENS = chosen
+        K.SPLIT_BYTES, K.MIN_CTAS = chosen
     log(f"K1 split scan, {label}: ms by split length "
-        f"{ {k: round(v, 4) for k, v in times.items()} } (SPLIT_TOKENS "
-        f"{chosen}), each within tolerance of the plain version")
+        f"{ {k: round(v, 4) for k, v in times.items()} } (the plan: "
+        f"{planned[0]} splits of {planned[1]}, SPLIT_BYTES {chosen[0]}, "
+        f"MIN_CTAS {chosen[1]}), each within tolerance of the plain version")
+
+
+def k1_cell_inputs(cell, seed=0):
+    """K1's inputs at one layer of a benchmark cell's decode round on
+    qwen2.5-7b (B 32, H 28, KV 4, hd 128, bf16, pages of 64, the dense
+    cache's identity table): decode-long, 128 pages with lengths spread over
+    1-7,168; colo-chat, 64 pages, 23 idle slots at length 1 and 9 of
+    100-3,000."""
+    B, H, KV, hd = 32, 28, 4, 128
+    npg = {"decode-long": 128, "colo-chat": 64}[cell]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    q, kp, vp = randn(B, H, hd), randn(B * npg, 64, KV, hd), \
+        randn(B * npg, 64, KV, hd)
+    pt = torch.arange(B * npg, dtype=torch.int32, device="cuda").reshape(B, npg)
+    rng = np.random.default_rng(seed)
+    if cell == "decode-long":
+        lengths = rng.integers(1, 7169, size=B)
+    else:
+        lengths = np.ones(B, np.int64)
+        lengths[rng.permutation(B)[:9]] = rng.integers(100, 3001, size=9)
+    return q, kp, vp, pt, torch.tensor(lengths, dtype=torch.int32,
+                                       device="cuda")
+
+
+def phase2_k1(K):
+    """Phase 2: K1 against its plain version, timed beside its bound, the
+    plain version and SDPA, at llama3-8b's and qwen2.5-7b's heads, the long
+    context and the benchmark's two qwen2.5-7b cells; the split scan at the
+    long context and at decode-long. Returns decode-long's numbers."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for H, KV in ((32, 8), (28, 4)):           # llama3-8b, qwen2.5-7b
+            for B in (1, 8):
+                args = k1_inputs(B, H, KV, 128, 64, 16, dtype, seed=B + H)
+                check_k1(K, *args, label=f"{str(dtype)[6:]} H={H} KV={KV} "
+                         f"g={H // KV} B={B} ptok=64 pages=16 lengths="
+                         f"{args[4].tolist()}")
+    # the long context: one sequence, every page full (8 CTAs before the
+    # split, 8 x 16 with it)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = k1_inputs(1, 32, 8, 128, 64, 16, dtype, seed=99, full=True)
+        plan = K._k1_splits(16, 64, 8, 2 * 128 * args[0].element_size())
+        check_k1(K, *args, label=f"{str(dtype)[6:]} H=32 KV=8 g=4 B=1 ptok=64 "
+                 f"pages=16, all full (long context), lengths "
+                 f"{args[4].tolist()}, splits {plan}")
+        if dtype == torch.bfloat16:
+            k1_split_scan(K, args, "bf16 B=1, 16 full pages")
+    rows = {}
+    for cell in ("decode-long", "colo-chat"):
+        args = k1_cell_inputs(cell)
+        launches = K.LAUNCHES_MMA
+        rows[cell] = check_k1(K, *args, label=f"qwen2.5-7b {cell} (B=32 "
+                              f"H=28 KV=4 hd=128 bf16, pages={args[3].shape[1]}"
+                              f", lengths {args[4].tolist()})")
+        if K.LAUNCHES_MMA == launches:
+            raise AssertionError(f"K1 at {cell} did not take the tensor "
+                                 f"cores")
+    k1_split_scan(K, k1_cell_inputs("decode-long"), "qwen2.5-7b decode-long")
+    return rows["decode-long"]
 
 
 def tree_bytes(tree) -> int:
@@ -2349,22 +2422,7 @@ def phases_llama3(dev):
     from repro_torch.serving.request import Request
 
     # ------------------------------------------- 2. K1 vs plain, on card --
-    for dtype in (torch.bfloat16, torch.float32):
-        for H, KV in ((32, 8), (28, 4)):           # llama3-8b, qwen2.5-7b
-            for B in (1, 8):
-                args = k1_inputs(B, H, KV, 128, 64, 16, dtype, seed=B + H)
-                check_k1(K, *args, label=f"{str(dtype)[6:]} H={H} KV={KV} "
-                         f"g={H // KV} B={B} ptok=64 pages=16 lengths="
-                         f"{args[4].tolist()}")
-    # the long context: one sequence, every page full (8 CTAs before the
-    # split, 8 x 16 with it)
-    for dtype in (torch.bfloat16, torch.float32):
-        args = k1_inputs(1, 32, 8, 128, 64, 16, dtype, seed=99, full=True)
-        check_k1(K, *args, label=f"{str(dtype)[6:]} H=32 KV=8 g=4 B=1 ptok=64 "
-                 f"pages=16, all full (long context), lengths "
-                 f"{args[4].tolist()}, splits {K._k1_splits(16, 64)}")
-        if dtype == torch.bfloat16:
-            k1_split_scan(K, args, "bf16 B=1, 16 full pages")
+    phase2_k1(K)
 
     # ------------------------------------ 3. main path: full-width serve --
     cfg = get_config("llama3-8b")
@@ -4830,7 +4888,12 @@ def phase23_cluster(fitted):
                                          "run of the spec differs")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="On-card smoke test of the port")
+    ap.add_argument("--k1", action="store_true",
+                    help="phases 1 and 2 alone: the build, then K1")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4869,6 +4932,13 @@ def main() -> int:
         report = (lib.parent / f"{name}.log").read_text().strip()
         log(f"nvcc {name}:\n{report}")
 
+    if args.k1:
+        from repro_torch.kernels import decode_attention as K
+        row = phase2_k1(K)
+        log(f"card: {card_line()}")
+        log(json.dumps({"ok": True, "k1_decode_long": row, "device": {
+            "kind": torch.cuda.get_device_name(0)}}))
+        return 0
     t_phase = time.perf_counter()
     llama = phases_llama3(dev)
     log(f"phases 2-7 took {time.perf_counter() - t_phase:.1f} s")

@@ -111,24 +111,57 @@ def test_wrapper_rejects_bad_inputs():
         K.paged_decode_attention(q, kp, vp[:, :4], pt, lengths)
 
 
-
-# The split-KV plan, from the table's width alone (the host never reads the
-# lengths): splits of 64 positions, at most MAX_SPLITS of them, each a
-# multiple of the kernel's 32-token tile, covering every position once.
-@pytest.mark.parametrize("n_pages,ptok,plan", [
-    (16, 64, (16, 64)),       # the serving cache: s_max 1024 in pages of 64
-    (1, 160, (3, 64)),        # one page per slot (S not a multiple of 64)
-    (4, 32, (2, 64)),
-    (64, 64, (64, 64)),
-    (128, 64, (64, 128)),     # 8192 positions: longer splits
-    (3, 1000, (47, 64)),
-    (200, 64, (58, 224)),
-    (1, 8, (1, 64)),
-    (0, 64, (1, 64)),         # an empty table still launches one split
+# The split-KV plan, from the table's width, the (sequence, KV head) pairs
+# and a position's K/V bytes alone (the host never reads the lengths):
+# splits reading SPLIT_BYTES of K/V, shorter where a full-length grid would
+# hold under MIN_CTAS CTAs, longer where it would need over MAX_SPLITS
+# splits, each a multiple of the 64-position tile, covering every position
+# once.
+@pytest.mark.parametrize("n_pages,ptok,pairs,row_bytes,plan", [
+    (16, 64, 64, 512, (4, 256)),     # llama3-8b serving: 8 slots x 8 KV heads
+    (1, 160, 6, 64, (3, 64)),        # one page per slot (S not a multiple of 64)
+    (4, 32, 4, 256, (2, 64)),
+    (64, 64, 128, 512, (16, 256)),   # qwen2.5-7b colo-chat: 32 slots, s_max 4096
+    (128, 64, 128, 512, (32, 256)),  # qwen2.5-7b decode-long: s_max 8192
+    (3, 1000, 8, 512, (24, 128)),    # few pairs: shorter splits fill the card
+    (200, 64, 128, 1024, (50, 256)),  # f32: longer, at most MAX_SPLITS
+    (1, 8, 1, 64, (1, 64)),
+    (0, 64, 8, 512, (1, 64)),        # an empty table still launches one split
+    (32, 64, 8, 1024, (32, 64)),     # recurrentgemma-2b: MQA, hd 256, 8 slots
 ])
-def test_split_plan(n_pages, ptok, plan):
-    n_splits, split = K._k1_splits(n_pages, ptok)
+def test_split_plan(n_pages, ptok, pairs, row_bytes, plan):
+    n_splits, split = K._k1_splits(n_pages, ptok, pairs, row_bytes)
     assert (n_splits, split) == plan
     total = n_pages * ptok
-    assert 1 <= n_splits <= K.MAX_SPLITS and split % 32 == 0
+    assert 1 <= n_splits <= K.MAX_SPLITS and split % K.SPLIT_TILE == 0
     assert n_splits * split >= total and (n_splits - 1) * split < max(total, 1)
+
+
+# The kernel a CUDA call takes, by dtype and shape: every attention family
+# the port serves in bf16 is on the tensor cores; f32 and the shapes the
+# 16-row MMA tile does not take stay on the CUDA cores.
+@pytest.mark.parametrize("dtype,hd,g,path", [
+    (torch.bfloat16, 128, 7, "mma"),     # qwen2.5-7b
+    (torch.bfloat16, 128, 5, "mma"),     # qwen3-14b
+    (torch.bfloat16, 128, 4, "mma"),     # llama3, mixtral, qwen3-8b
+    (torch.bfloat16, 80, 4, "mma"),      # h2o-danube
+    (torch.bfloat16, 256, 10, "mma"),    # recurrentgemma
+    (torch.bfloat16, 96, 1, "mma"),      # phi-3-vision
+    (torch.bfloat16, 64, 1, "mma"),      # seamless
+    (torch.bfloat16, 16, 16, "mma"),
+    (torch.float32, 128, 7, "fma"),      # tensor cores would round to TF32
+    (torch.float32, 64, 1, "fma"),
+    (torch.bfloat16, 128, 17, "fma"),    # more heads than the tile's rows
+    (torch.bfloat16, 40, 2, "fma"),      # hd not in 16-wide steps
+])
+def test_k1_path_by_dtype_and_shape(dtype, hd, g, path):
+    assert K._k1_path(dtype, hd, g) == path
+
+
+def test_cpu_calls_launch_nothing():
+    q, kp, vp, pt, lengths = to_torch(_inputs(2, 8, 2, 64, 32, 4, "bfloat16",
+                                              "permuted"))
+    before = (K.LAUNCHES, K.LAUNCHES_MMA, K.PLAIN_CALLS)
+    K.paged_decode_attention(q, kp, vp, pt, lengths)
+    assert (K.LAUNCHES, K.LAUNCHES_MMA, K.PLAIN_CALLS) == \
+        (before[0], before[1], before[2] + 1)

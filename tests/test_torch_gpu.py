@@ -8,7 +8,10 @@ autograd Function's backward; which kernel each shape took, by the
 counters) and the SSD scan kernels (K3: the chunk-parallel tensor-core
 kernel and the FMA kernel, which one each case took by the counters; ragged chunks, an initial state, bf16 inputs read
 through the strides of the conv output) against their plain torch
-versions, a decode step through K1 against the dense oracle, mamba2's
+versions, K1's tensor-core kernel at the benchmark's qwen2.5-7b shapes
+and at g 1 (hd 64, 96) and g 10 (hd 256) beside its CUDA-core kernel, by
+the counters, and every K1 kernel named `paged_decode` in a profile, a
+decode step through K1 against the dense oracle, mamba2's
 512-token prefill through K3 against an f64 recurrence, and an SSM
 prefill through K3 against the plain scan; and the CUDA graphs of the
 decode step and the co-located round (on llama3 and mamba2 smoke widths,
@@ -130,8 +133,9 @@ def test_cuda_kernel_matches_plain(B, H, KV, hd, ptok, npg, dtype):
 
 
 # B, H, KV, hd, ptok, n_pages, lengths, -1 pages (b, p): the split-KV
-# edges. Splits are 64 positions, so a length of 64 or 128 ends a split
-# exactly; length 0 leaves every split empty.
+# edges. At these shapes splits are 64 (B 1) or 128 positions (`_k1_splits`),
+# so a length of 64 ends a tile and 128 a split exactly; length 0 leaves
+# every split empty.
 K1_SPLIT_CASES = {
     "length 1": (2, 32, 8, 128, 64, 16, [1, 1], []),
     "page boundary": (3, 32, 8, 128, 64, 16, [64, 128, 1024], []),
@@ -164,6 +168,98 @@ def test_k1_splits_match_plain(case, dtype):
     for b, n in enumerate(lengths.tolist()):
         if n == 0:                   # nothing valid: exactly 0, not NaN
             assert not got[b].any()
+
+
+def _k1_mma_lengths(case, B, ptok, npg, KV, hd):
+    """The lengths of a K1_MMA_CASES case: decode-long's spread over
+    1-7,168 with a 1 and the two positions around a split's end, colo-chat's
+    23 idle slots of 1 and 9 of 100-3,000, the others drawn."""
+    rng = np.random.default_rng(len(case))
+    if case == "decode-long":
+        _, split = K._k1_splits(npg, ptok, B * KV, 4 * hd)
+        n = rng.integers(1, 7169, size=B)
+        n[:4] = [1, 16 * split, 16 * split + 1, 7168]
+    elif case == "colo-chat":
+        n = np.ones(B, np.int64)
+        n[rng.permutation(B)[:9]] = rng.integers(100, 3001, size=9)
+    else:
+        n = rng.integers(1, npg * ptok + 1, size=B)
+        n[-1] = 1
+    return n.astype(np.int32)
+
+
+# B, H, KV, hd, ptok, n_pages: the benchmark's qwen2.5-7b cells, and g 1 at
+# hd 64 and 96 and g 10 at hd 256, the families farthest from them
+K1_MMA_CASES = {
+    "decode-long": (32, 28, 4, 128, 64, 128),
+    "colo-chat": (32, 28, 4, 128, 64, 64),
+    "g1 hd64": (8, 16, 16, 64, 64, 16),
+    "g1 hd96": (8, 32, 32, 96, 64, 18),
+    "g10 hd256": (8, 10, 1, 256, 64, 32),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K1_MMA_CASES))
+def test_k1_tensor_cores_match_plain(case):
+    """bf16 through the tensor-core kernel, the same values in f32 through
+    the CUDA-core kernel, each against the plain version at the file's
+    tolerances; `LAUNCHES_MMA` counts the bf16 call alone. Both errors are
+    printed (run with -s to see them)."""
+    B, H, KV, hd, ptok, npg = K1_MMA_CASES[case]
+    q, kp, vp, pt, _ = _inputs(B, H, KV, hd, ptok, npg, torch.bfloat16,
+                               _card(), seed=len(case))
+    lengths = torch.from_numpy(_k1_mma_lengths(case, B, ptok, npg, KV, hd)
+                               ).to(q.device)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = (q.to(dtype), kp.to(dtype), vp.to(dtype), pt, lengths)
+        expect = K.paged_decode_attention_plain(*args)
+        before = (K.LAUNCHES, K.LAUNCHES_MMA)
+        got = K.paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        mma = dtype == torch.bfloat16
+        assert (K.LAUNCHES, K.LAUNCHES_MMA) == (before[0] + 1,
+                                                before[1] + mma)
+        assert K._k1_path(dtype, hd, H // KV) == ("mma" if mma else "fma")
+        assert torch.isfinite(got).all()
+        errs[dtype] = (got.float() - expect.float()).abs().max().item()
+        tol = 2e-2 if mma else 1e-4
+        torch.testing.assert_close(got.float(), expect.float(), atol=tol,
+                                   rtol=tol)
+    print(f"K1 {case}: max abs error against the plain version, bf16 on "
+          f"the tensor cores {errs[torch.bfloat16]:.3e}, f32 on the CUDA "
+          f"cores {errs[torch.float32]:.3e}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k1_kernels_are_named_paged_decode(dtype):
+    """Every kernel a K1 call launches, on either path, carries
+    `paged_decode` in its name: the benchmark finds K1's device time by it.
+    Two launches a call: the splits and the combine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = _inputs(8, 28, 4, 128, 64, 16, dtype, _card())
+    K.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    # a profiler window has been seen to come back with no device events at
+    # all (the second window of a process, now and then): one with none is
+    # taken again, at most twice
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            K.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+        if names:
+            break
+    kernels = [n for n in names if "memcpy" not in n.lower()
+               and "memset" not in n.lower()]
+    assert len(kernels) == 2, names
+    assert all("paged_decode" in n for n in kernels), kernels
+    assert any("mma" in n for n in kernels) == (dtype == torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -677,7 +773,8 @@ def test_graphed_rounds_equal_eager_rounds(arch):
 def test_replays_count_their_captured_launches():
     """Capture launches nothing and moves no counter; each replay adds its
     captured launches: K1 once per layer in the decode graph (and in the
-    whole card's decode graph a split captures for k = 0), K2 7 times
+    whole card's decode graph a split captures for k = 0), each on the
+    tensor-core kernel (`LAUNCHES_MMA`), K2 7 times
     in a FWD unit's graph and 14 in a BWD unit's (all wgmma), nothing in
     EMBED, HEAD and OPT."""
     dev = _card()
@@ -697,8 +794,9 @@ def test_replays_count_their_captured_launches():
     n = cfg.num_layers
     assert runner.split is not None
     assert K.LAUNCHES - k1 == 2 * n and K2.LAUNCHES_WGMMA - k2 == 21 * n
-    assert runner._decode.graph.launches == {(K, "LAUNCHES"): n}
-    assert runner._solo.graph.launches == {(K, "LAUNCHES"): n}
+    k1_per_step = {(K, "LAUNCHES"): n, (K, "LAUNCHES_MMA"): n}   # bf16: MMA
+    assert runner._decode.graph.launches == k1_per_step
+    assert runner._solo.graph.launches == k1_per_step
     unit = runner.unit_step
     for key, graph in runner._units.graphs.items():
         kind = unit.kind(pc.accum * unit.upm if key == "opt" else key)
